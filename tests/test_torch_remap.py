@@ -1,0 +1,284 @@
+"""PyTorch port vs JAX package: exact incremental remapping
+(cice_tpu_torch.dynamics.remap_exact) stage by stage in f64, and the fused
+transport kernel's wrapper (cice_tpu_torch.kernels.remap), whose CPU path
+is the plain construct -> fluxes -> update chain, against the JAX Pallas
+kernel run by the interpreter.
+
+Tolerances: f64 stages repeat the JAX expressions, so they agree to 1e-10
+relative to each field's largest value (reduction order only). The f32
+kernel comparison uses the JAX package's own engine-vs-engine bar
+(tests/test_remap_pallas.py:131-143): area rtol 1e-5, tracers rtol 5e-4
+with atol 5e-5 of each field's scale; conservation of area 1e-5 and of
+tracer content 1e-4.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from cice_tpu.config import Config  # noqa: E402
+from cice_tpu.core.grid import rectgrid as jrectgrid  # noqa: E402
+from cice_tpu.core.halo import BC as JBC  # noqa: E402
+from cice_tpu.dynamics import remap_exact as jrx  # noqa: E402
+from cice_tpu.kernels.remap_pallas import transport_fused as jfused  # noqa: E402
+from cice_tpu.model.state import tracer_registry as jreg  # noqa: E402
+from cice_tpu.model.state import zeros_state as jzeros  # noqa: E402
+from cice_tpu_torch import convert  # noqa: E402
+from cice_tpu_torch.core.halo import BC as TBC  # noqa: E402
+from cice_tpu_torch.dynamics import remap_exact as trx  # noqa: E402
+from cice_tpu_torch.kernels import remap as tkremap  # noqa: E402
+from cice_tpu_torch.model.state import tracer_registry as treg  # noqa: E402
+from cice_tpu_torch import config as tconfig  # noqa: E402
+
+
+def _np(obj):
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, dict):
+            out[f.name] = {k: np.asarray(x) for k, x in v.items()}
+        elif f.name not in ("bc", "nx_global", "ny_global"):
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def _setup(dtype, nx=32, ny=24, ew="cyclic", kmt="default", seed=0,
+           cfl=0.3):
+    """A two-category blob of ice with every tracer filled, and a velocity
+    field moving ~cfl cells per step, made with numpy from a seed."""
+    jdt = jnp.dtype(dtype)
+    cfg = Config().with_overrides(**{"grid.nx_global": nx,
+                                     "grid.ny_global": ny})
+    jg = jrectgrid(nx, ny, kmt_type=kmt, dtype=jdt, bc=JBC(ew, "open"))
+    tg = convert.grid_from_numpy(_np(jg), TBC(ew, "open"), "cpu")
+    st = jzeros(cfg, jg)
+    rng = np.random.default_rng(seed)
+    ncat = cfg.domain.ncat
+    jj, ii = np.mgrid[0:ny, 0:nx]
+    blob = np.exp(-(((ii - nx / 2) / 6.0) ** 2 + ((jj - ny / 2) / 5.0) ** 2))
+    tm = np.asarray(jg.hm)
+    aicen = np.zeros((ncat, ny, nx))
+    aicen[1] = 0.6 * blob * tm
+    aicen[2] = 0.3 * blob * tm
+    aicen[4] = 0.05 * tm * (rng.random((ny, nx)) > 0.5)
+    vicen = aicen * (1.0 + 0.3 * rng.random((ncat, ny, nx)))
+    vsnon = aicen * 0.1 * rng.random((ncat, ny, nx))
+    shape = lambda k: np.shape(st.trcrn[k])
+    fill = dict(Tsfcn=lambda s: -5.0 - 3.0 * rng.random(s),
+                qice=lambda s: -2.0e8 * (1 + 0.2 * rng.random(s)),
+                sice=lambda s: 5.0 * (1 + 0.1 * rng.random(s)),
+                qsno=lambda s: -1.0e8 * (1 + 0.1 * rng.random(s)),
+                iage=lambda s: 3.0e7 * rng.random(s))
+    trcrn = {k: (fill[k](shape(k)) if k in fill else rng.random(shape(k)))
+             for k in st.trcrn}
+    dx_m = float(np.asarray(jg.dxU)[0, 0])
+    umax = cfl * dx_m / 3600.0
+    u = umax * np.cos(2 * np.pi * jj / ny + 0.3) * (0.5 + rng.random((ny, nx)))
+    v = umax * np.sin(2 * np.pi * ii / nx + 0.1)
+    cast = lambda a: jnp.asarray(np.asarray(a, dtype))
+    st = st.replace(aicen=cast(aicen), vicen=cast(vicen), vsnon=cast(vsnon),
+                    trcrn={k: cast(x) for k, x in trcrn.items()},
+                    uvel=cast(u), vvel=cast(v))
+    ts = convert.state_from_numpy(_np(st), "cpu")
+    Tf = np.full((ny, nx), -1.8, dtype)
+    return cfg, jg, tg, st, ts, Tf
+
+
+def _close(got, ref, rtol, name=""):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref)
+    if ref.dtype == np.bool_:
+        np.testing.assert_array_equal(got, ref, err_msg=name)
+        return
+    scale = max(float(np.abs(ref).max()), 1e-300)
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * scale,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("ew", ["cyclic", "closed"])
+def test_stages_match_jax_f64(ew):
+    cfg, jg, tg, st, ts, _ = _setup("float64", ew=ew)
+    jr, tr = jreg(cfg), treg(tconfig.Config().with_overrides(
+        **{"grid.nx_global": 32, "grid.ny_global": 24}))
+    jt, tt = jrx.build_flat_table(jr), trx.build_flat_table(tr)
+    jam, jtrm = jrx.state_to_tracers(st, jr, jt)
+    tam, ttrm = trx.state_to_tracers(ts, tr, tt)
+    _close(tam, jam, 0.0, "am")
+    _close(ttrm, jtrm, 0.0, "trm")
+
+    jcf = jrx.construct_fields(jg, jam, jtrm, jt, jg.hm)
+    tcf = trx.construct_fields(tg, tam, ttrm, tt, tg.hm)
+    for name, a, b in zip(("mc", "mx", "my", "tc", "tx", "ty"), tcf, jcf):
+        _close(a, b, 1e-10, name)
+
+    for midpt in (False, True):
+        jd = jrx.departure_points_scaled(jg, st.uvel, st.vvel, 3600.0, midpt)
+        td = trx.departure_points_scaled(tg, ts.uvel, ts.vvel, 3600.0, midpt)
+        for name, a, b in zip(("dxs", "dys", "oob"), td, jd):
+            _close(a, b, 1e-12, name)
+    jmom = jrx.edge_moments(jg, jd[0], jd[1])
+    tmom = trx.edge_moments(tg, td[0], td[1])
+    for name, a, b in zip(("mom_n", "mom_e"), tmom, jmom):
+        _close(a, b, 1e-10, name)
+
+    jfl = jrx.remap_fluxes(jg, jd[0], jd[1], *jcf[:6], jt)
+    tfl = trx.remap_fluxes(tg, td[0], td[1], *tcf[:6], tt)
+    for name, a, b in zip(("mflxe", "mflxn", "mtflxe", "mtflxn"), tfl, jfl):
+        _close(a, b, 1e-10, name)
+
+    jup = jrx.update_fields(jg, jam, jtrm, *jfl, jt)
+    tup = trx.update_fields(tg, tam, ttrm, *tfl, tt)
+    for name, a, b in zip(("am", "trm", "neg"), tup, jup):
+        _close(a, b, 1e-10, name)
+
+    for name, a, b in zip(("asum", "prods"), trx.global_sums(tg, tam, ttrm, tt),
+                          jrx.global_sums(jg, jam, jtrm, jt)):
+        _close(a, b, 1e-12, name)
+    for name, a, b in zip(("tmin", "tmax"),
+                          trx.monotonicity_bounds(tg, tam, ttrm, tt),
+                          jrx.monotonicity_bounds(jg, jam, jtrm, jt)):
+        _close(a, b, 0.0, name)
+
+
+def test_horizontal_remap_exact_matches_jax_f64():
+    cfg, jg, tg, st, ts, Tf = _setup("float64", seed=3)
+    kw = dict(l_dp_midpt=True, conserv_check=True, monotonicity_check=True)
+    jnew, jdiag = jax.jit(lambda s: jrx.horizontal_remap_exact(
+        jg, s, jreg(cfg), jnp.asarray(Tf), 3600.0, **kw))(st)
+    tnew, tdiag = trx.horizontal_remap_exact(
+        tg, ts, treg(tconfig.Config()), torch.as_tensor(Tf), 3600.0, **kw)
+    j, t = _np(jnew), convert.state_to_numpy(tnew)
+    for k in ("aicen", "vicen", "vsnon"):
+        _close(t[k], j[k], 1e-10, k)
+    for k in j["trcrn"]:
+        _close(t["trcrn"][k], j["trcrn"][k], 1e-10, k)
+    for k in ("oob", "neg_mass", "mono_violation"):
+        assert bool(tdiag[k]) == bool(jdiag[k]), k
+    assert float(tdiag["cons_err_area"]) < 1e-12
+    assert float(tdiag["cons_err_tracer"]) < 1e-10
+
+
+def _small_tables():
+    """A 6-tracer registry with every chain type (alvl -> apnd -> hpnd,
+    hs -> qsno) in both packages: the interpreted Pallas kernel's compile
+    time grows with the table, and this one keeps it near 20 s."""
+    from cice_tpu.model import state as js
+    from cice_tpu_torch.model import state as ts
+    tabs = []
+    for m in (js, ts):
+        reg = (m.TracerSpec("alvl", m.DEP_AICE, hi=1.0),
+               m.TracerSpec("apnd", m.DEP_AICE, parent="alvl", hi=1.0),
+               m.TracerSpec("hpnd", m.DEP_AICE, parent="apnd"),
+               m.TracerSpec("qsno", m.DEP_VSNO, 1, lo=-5e8, hi=0.0))
+        tabs.append((jrx if m is js else trx).build_flat_table(reg))
+    assert [f.ttype for f in tabs[1]] == [1, 1, 1, 2, 2, 3]
+    return tabs
+
+
+def test_fused_wrapper_cpu_matches_jax_pallas_interpret():
+    """The K2 wrapper on CPU tensors (its plain version) against the JAX
+    Pallas transport kernel run by the interpreter, on the same am, trm
+    and edge moments (masked 16x16 grid, E-W cyclic)."""
+    jt, tt = _small_tables()
+    cfg, jg, tg, st, ts, Tf = _setup("float32", nx=16, ny=16, seed=1)
+    rng = np.random.default_rng(4)
+    ncat, ny, nx = 2, 16, 16
+    aicen = np.asarray(st.aicen)[1:3]
+    am = np.concatenate([np.clip(1.0 - aicen.sum(0), 0, 1)[None], aicen])
+    trm = np.stack([1.0 + rng.random((ncat, ny, nx)),         # hi
+                    0.3 * rng.random((ncat, ny, nx)),         # hs
+                    rng.random((ncat, ny, nx)),               # alvl
+                    rng.random((ncat, ny, nx)),               # apnd
+                    1.1e8 - 1e8 * rng.random((ncat, ny, nx)),  # qsno + off
+                    0.5 * rng.random((ncat, ny, nx))], axis=1)  # hpnd
+    am, trm = am.astype(np.float32), trm.astype(np.float32)
+    dxs, dys, _ = jrx.departure_points_scaled(jg, st.uvel, st.vvel, 3600.0,
+                                              True)
+    mom_n, mom_e = (np.array(m) for m in jrx.edge_moments(jg, dxs, dys))
+    ref_am, ref_trm = jax.jit(lambda: jfused(
+        jg, jnp.asarray(mom_n), jnp.asarray(mom_e), jnp.asarray(am),
+        jnp.asarray(trm), jt, interpret=True))()
+    T = torch.as_tensor
+    before = tkremap.launches
+    got_am, got_trm = tkremap.transport_fused(tg, T(mom_n), T(mom_e), T(am),
+                                              T(trm), tt)
+    assert tkremap.launches == before   # CPU tensors never reach the kernel
+    np.testing.assert_allclose(got_am.numpy(), np.asarray(ref_am),
+                               rtol=1e-5, atol=1e-7)
+    got_trm, ref_trm = got_trm.numpy(), np.asarray(ref_trm)
+    for n in range(ref_trm.shape[1]):
+        r = ref_trm[:, n]
+        scale = float(np.abs(r).max()) or 1.0
+        np.testing.assert_allclose(got_trm[:, n], r, rtol=5e-4,
+                                   atol=5e-5 * scale, err_msg=f"tracer {n}")
+
+
+def test_pick_tile_fits_shared_memory():
+    assert tkremap.pick_tile(25) == (32, 4)
+    for NT in (1, 25, 100, 300):
+        tx, ty = tkremap.pick_tile(NT)
+        assert tkremap.smem_bytes(tx, ty, NT) <= tkremap.MAX_SMEM
+    with pytest.raises(ValueError):
+        tkremap.pick_tile(5000)
+
+
+def test_transport_plain_conserves_f32():
+    cfg, jg, tg, st, ts, Tf = _setup("float32", seed=2)
+    tnew, diag = trx.horizontal_remap_exact(
+        tg, ts, treg(tconfig.Config()), torch.as_tensor(Tf), 3600.0,
+        l_dp_midpt=True, conserv_check=True)
+    assert float(diag["cons_err_area"]) < 1e-5
+    assert float(diag["cons_err_tracer"]) < 1e-4
+    assert not bool(diag["oob"]) and not bool(diag["neg_mass"])
+    assert torch.isfinite(tnew.aicen).all()
+
+
+def test_knife_edge_chain_no_amplification():
+    """Port of tests/test_remap_exact.py::test_knife_edge_chain_no_
+    amplification: a knife-edge snow weight chain (hs ~ 1e-7 m per area)
+    must not amplify its snow enthalpy through repeated remap steps; the
+    registry rails bound every tracer."""
+    from cice_tpu_torch.model.state import _QSNO_LO
+    cfg, jg, tg, st, ts, Tf = _setup("float64", nx=32, ny=32, kmt="none",
+                                     seed=5)
+    an = ts.aicen
+    mask = an > 0
+    trcrn = dict(ts.trcrn)
+    vs = torch.where(mask, an * 1e-7, 0.0)
+    trcrn["qsno"] = torch.where(mask[:, None], -2.5e8, 0.0).expand_as(
+        trcrn["qsno"]).clone()
+    dt = 3600.0
+    dx_m = float(tg.dxU[0, 0])
+    umax = 0.3 * dx_m / dt
+    jj, ii = np.mgrid[0:32, 0:32]
+    u = torch.as_tensor(umax * np.cos(2 * np.pi * jj / 32 + 0.3))
+    v = torch.as_tensor(umax * np.sin(2 * np.pi * ii / 32 + 0.1))
+    state = ts.replace(vsnon=vs, trcrn=trcrn, uvel=u, vvel=v)
+    reg = treg(tconfig.Config())
+    for _ in range(8):
+        state, _ = trx.horizontal_remap_exact(tg, state, reg,
+                                              torch.as_tensor(Tf), dt,
+                                              l_dp_midpt=True)
+    q = state.trcrn["qsno"].numpy()
+    assert np.isfinite(q).all()
+    assert q.min() >= _QSNO_LO - 1.0
+    assert q.max() <= 1e-6
+    t = state.trcrn["Tsfcn"].numpy()
+    assert t.min() >= -100.0 - 1e-6 and t.max() <= 1e-6
+
+
+def test_unported_engines_raise():
+    cfg, jg, tg, st, ts, Tf = _setup("float32", nx=8, ny=8)
+    reg = treg(tconfig.Config())
+    with pytest.raises(NotImplementedError, match="K3"):
+        trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf), 60.0,
+                                   flux_kernel="fused_pallas")
+    with pytest.raises(NotImplementedError, match="C/CD"):
+        trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf), 60.0,
+                                   grid_ice="C")
