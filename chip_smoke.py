@@ -10,12 +10,22 @@ per source, started together), then:
      EVP inputs (the bench.py `_evp_problem` recipe, rebuilt in the port);
   2. K2 (fused transport) against the plain remap path on the slice's
      initial state, moved by one EVP solve so the ice is in motion;
-  3. the main path: Model(gx1pop_dyn, device="cuda").run_dynamics(3) with
-     the launch counters reset just before and read just after, checked for
-     finite state, no out-of-bounds departures, negative mass before the
-     floor no deeper than 1e-9, area conservation, the same transport flags
-     as the plain path and agreement with its state after the same steps;
-  4. timings with CUDA events after warmup, each beside its computed bound.
+  3. K3 (flux-only transport) against its plain version on the same moving
+     ice, after `construct_fields`;
+  4. the dynamics-transport path: Model(gx1pop_dyn).run_dynamics(1) (K1 +
+     K2) against the plain path after the same step;
+  5. the main path: Model(gx1pop_step, device="cuda").run(3), the full
+     coupled step with K1 + K3, checked for finite state and fluxes, no
+     out-of-bounds departures, negative mass before the floor no deeper
+     than 1e-9, area conservation, a clean `check_state`, the freshwater
+     budget within Model.step's 1 % rule, and agreement with the plain path
+     (plain EVP loop, plain transport) after the same 3 steps;
+  6. one coupled step of gx1pop_step(remap_kernel="auto") (K1 + K2);
+  7. timings with CUDA events after warmup, each beside its computed bound,
+     and the phases of the coupled step.
+
+Every path is driven with the launch counters set to 0 just before it and
+read just after.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as the last line {"ok": true, "device": {...}}. Any failure
@@ -25,6 +35,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -65,6 +76,32 @@ def bound_ms(nbytes: float, flops: float):
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+class PhaseTimer:
+    """`timer` of model_step: CUDA events around every phase; `totals()`
+    gives the ms per phase name summed over its calls."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        import torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        self.events.append((name, a, b))
+
+    def totals(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        out: dict = {}
+        for name, a, b in self.events:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cice_tpu_torch", "csrc")):
         print("chip_smoke: the cice_tpu_torch package is not beside this "
@@ -83,12 +120,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from cice_tpu_torch import config as C
-    from cice_tpu_torch.columns.ridging import ice_strength
+    from cice_tpu_torch.columns.ridging import ice_strength, ridge_ice
     from cice_tpu_torch.dynamics import remap_exact as rx
     from cice_tpu_torch.dynamics.common import dyn_prep, evp_params
     from cice_tpu_torch.dynamics.evp import evp_solve
     from cice_tpu_torch.kernels import _build, evp as kevp, remap as kremap
+    from cice_tpu_torch.model.diagnostics import check_state
     from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.flux import FLUXOUT_FIELDS
     from cice_tpu_torch.model.step import step_dyn_horiz
 
     t0 = time.perf_counter()
@@ -196,57 +235,151 @@ def main() -> int:
           f" bound {k2_bound:.4f} ms by {k2_by} ({nb2 / 1e6:.1f} MB, "
           f"{nf2 / 1e9:.2f} GFLOP)")
 
-    # ---- main path: 3 dynamics-transport steps through the kernels ------
+    # ---- K3: flux-only kernel vs its plain version, same moving ice -----
+    mc, mx, my, tc, tx, ty, tstack = rx.construct_fields(grid, am, trm,
+                                                         table, grid.hm)
+    fargs = (grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table)
+    ref_fl = kremap.tracer_fluxes_plain(*fargs)
+    got_fl = kremap.tracer_fluxes_fused(*fargs, tstack=tstack)
+    torch.cuda.synchronize()
+    k3_abs, k3_ok = 0.0, True
+    for nm, g, r in zip(("mflxe", "mflxn", "mtflxe", "mtflxn"), got_fl,
+                        ref_fl):
+        sc = float(r.abs().max())
+        e = float((g - r).abs().max())
+        k3_abs = max(k3_abs, e)
+        ok = sc > 0 and bool(((g - r).abs() <= 2e-5 * r.abs()
+                              + 2e-6 * sc).all())
+        k3_ok = k3_ok and ok
+        print(f"K3 fluxes: {nm} max |ref| {sc:.4e}, max abs error {e:.3e}, "
+              f"within rtol 2e-5 + 2e-6 scale: {ok}")
+    if not k3_ok:
+        fail("K3 disagrees with the plain flux path")
+    k3_ms = timed_ms(lambda: kremap.tracer_fluxes_fused(*fargs,
+                                                        tstack=tstack), 10)
+    k3_plain = timed_ms(lambda: kremap.tracer_fluxes_plain(*fargs), 3)
+    nb3, nf3 = kremap.tracer_fluxes_bound_bytes_flops(
+        table, am.shape[0] - 1, ny, nx)
+    k3_bound, k3_by = bound_ms(nb3, nf3)
+    print(f"K3 fluxes: kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms per "
+          f"call (NT={len(table)}); bound {k3_bound:.4f} ms by {k3_by} "
+          f"({nb3 / 1e6:.1f} MB, {nf3 / 1e9:.2f} GFLOP)")
+
+    def reset_counters():
+        kevp.launches = kremap.launches = kremap.flux_launches = 0
+
+    def read_counters():
+        return {"evp_fused": kevp.launches,
+                "transport_fused": kremap.launches,
+                "tracer_fluxes": kremap.flux_launches}
+
+    def compare(s, r, what):
+        """Kernel-path state s against plain-path state r: u/v within 1e-3
+        of the largest speed, aicen 1e-4, vicen/vsnon 1e-3 m, sst 1e-3 K."""
+        du = float(torch.sqrt((s.uvel - r.uvel) ** 2 +
+                              (s.vvel - r.vvel) ** 2).max())
+        uscale = float(torch.sqrt(r.uvel ** 2 + r.vvel ** 2).max())
+        d = {k: float((getattr(s, k) - getattr(r, k)).abs().max())
+             for k in ("aicen", "vicen", "vsnon", "sst")}
+        print(f"{what}: rel u/v {du / uscale:.3e} (max |u| {uscale:.3e}), "
+              + ", ".join(f"{k} {v:.3e}" for k, v in d.items()) + " (abs)")
+        if not (du / uscale <= 1e-3 and d["aicen"] <= 1e-4
+                and d["vicen"] <= 1e-3 and d["vsnon"] <= 1e-3
+                and d["sst"] <= 1e-3):
+            fail(f"{what}: the kernel path disagrees with the plain path")
+
+    def check_transport(tc, what):
+        # negative mass: the exact remap's signed fragments leave a few
+        # ocean cells at the ice edge a little below zero before the floor
+        # (in the plain f64 path too); the check bounds how far
+        if tc["oob"] or not tc["neg_mass_depth"] <= 1e-9 or \
+                not tc["cons_err_area"] < 1e-5:
+            fail(f"{what}: transport checks failed: {tc}")
+
+    plain_over = {"dynamics.evp_algorithm": "standard_2d",
+                  "dynamics.remap_kernel": "xla"}
+
+    # ---- the dynamics-transport path: one step through K1 + K2 ----------
+    dyn_m = Model(cfg, device=dev)
+    reset_counters()
+    dyn_m.run_dynamics(1)
+    torch.cuda.synchronize()
+    dyn_launches = read_counters()
+    dtc = {k: float(v) for k, v in dyn_m.tchecks.items()}
+    print(f"dynamics-transport path: 1 step, launches {dyn_launches}, "
+          f"checks {dtc}")
+    check_transport(dtc, "dynamics-transport path")
+    if dyn_launches["evp_fused"] < 1 or dyn_launches["transport_fused"] < 1:
+        fail(f"a kernel of the dynamics-transport path was not launched: "
+             f"{dyn_launches}")
+    ref_m = Model(cfg.with_overrides(**plain_over), device=dev)
+    ref_m.run_dynamics(1)
+    compare(dyn_m.state, ref_m.state,
+            "dynamics-transport path vs plain path after 1 step")
+
+    # ---- main path: 3 full coupled steps through K1 + K3 ----------------
     steps = 3
-    main = Model(cfg, device=dev)
-    kevp.launches = 0
-    kremap.launches = 0
+    scfg = C.gx1pop_step().with_overrides(**{"setup.conserv_check": True,
+                                             "setup.diagfreq": steps})
+    main = Model(scfg, device=dev)
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    main.run_dynamics(steps)
+    main.run(steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"evp_fused": kevp.launches, "transport_fused":
-                kremap.launches}
+    launches = read_counters()
     s = main.state
     planes = [s.aicen, s.vicen, s.vsnon, s.uvel, s.vvel, s.stressp,
-              s.stressm, s.stress12, *s.trcrn.values()]
+              s.stressm, s.stress12, s.sst, s.frzmlt, *s.trcrn.values()]
+    fl = main.flux
+    planes += [getattr(fl, k) for k in FLUXOUT_FIELDS]
+    planes += list(fl.ncat_fluxes.values())
     finite = all(bool(torch.isfinite(t).all()) for t in planes)
     tc = {k: float(v) for k, v in main.tchecks.items()}
-    print(f"main path: {steps} steps in {wall:.3f} s (host clock, kernels "
-          f"built), launches {launches}, checks {tc}, finite {finite}")
+    rec = main.diag_log[-1]
+    wres = abs(rec["bud_water_residual"]) / max(
+        abs(rec["bud_dM"]), abs(rec["bud_water_in"]), 1.0)
+    cs = {k: float(v) for k, v in check_state(s).items()}
+    print(f"main path: {steps} coupled steps in {wall:.3f} s (host clock, "
+          f"kernels built, diagnostics on the last step) on {smi[0]}, "
+          f"launches {launches}, checks {tc}, finite {finite}, "
+          f"check_state {cs}, freshwater residual / budget {wres:.3e}, "
+          f"aice max {rec['aice_max']:.4f}, hmax {rec['hmax']:.3f} m")
     if not finite:
-        fail("non-finite state after the main path")
-    # negative mass: the exact remap's signed fragments leave a few
-    # ocean cells at the ice edge a little below zero before the floor
-    # (in the plain f64 path too); the check bounds how far
-    if tc["oob"] or not tc["neg_mass_depth"] <= 1e-9 or \
-            not tc["cons_err_area"] < 1e-5:
-        fail(f"transport checks failed: {tc}")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the path was not launched: {launches}")
+        fail("non-finite state or fluxes after the main path")
+    check_transport(tc, "main path")
+    if cs["unstable"] or cs["nonfinite"]:
+        fail(f"check_state: {cs}")
+    if not wres <= 1e-2:
+        fail(f"freshwater budget residual {wres} of the budget")
+    if launches["evp_fused"] < 1 or launches["tracer_fluxes"] < 1:
+        fail(f"a kernel of the main path was not launched: {launches}")
 
     # the same steps on the plain path (plain EVP loop + plain transport)
-    plain_cfg = cfg.with_overrides(**{"dynamics.evp_algorithm":
-                                      "standard_2d",
-                                      "dynamics.remap_kernel": "xla"})
-    ref_m = Model(plain_cfg, device=dev)
-    ref_m.run_dynamics(steps)
-    r = ref_m.state
+    ref_m = Model(scfg.with_overrides(**plain_over), device=dev)
+    ref_m.run(steps)
     rtc = {k: float(v) for k, v in ref_m.tchecks.items()}
     print(f"plain path checks {rtc}")
     if rtc["neg_mass"] != tc["neg_mass"] or rtc["oob"] != tc["oob"]:
         fail("the kernel and plain paths raise different transport flags")
-    du = float(torch.sqrt((s.uvel - r.uvel) ** 2 +
-                          (s.vvel - r.vvel) ** 2).max())
-    uscale = float(torch.sqrt(r.uvel ** 2 + r.vvel ** 2).max())
-    da = float((s.aicen - r.aicen).abs().max())
-    dv = float((s.vicen - r.vicen).abs().max())
-    print(f"main path vs plain path after {steps} steps: rel u/v "
-          f"{du / uscale:.3e} (max |u| {uscale:.3e}), aicen {da:.3e}, "
-          f"vicen {dv:.3e} (abs)")
-    if not (du / uscale <= 1e-3 and da <= 1e-4 and dv <= 1e-3):
-        fail("main path disagrees with the plain path")
+    compare(s, ref_m.state, f"main path vs plain path after {steps} steps")
+
+    # ---- one coupled step through K1 + K2 (remap_kernel='auto') ---------
+    auto_m = Model(C.gx1pop_step(remap_kernel="auto").with_overrides(
+        **{"setup.conserv_check": True}), device=dev)
+    reset_counters()
+    auto_m.run(1)
+    torch.cuda.synchronize()
+    auto_launches = read_counters()
+    atc = {k: float(v) for k, v in auto_m.tchecks.items()}
+    print(f"coupled step with remap_kernel='auto': launches "
+          f"{auto_launches}, checks {atc}")
+    check_transport(atc, "coupled step with remap_kernel='auto'")
+    if auto_launches["evp_fused"] < 1 or \
+            auto_launches["transport_fused"] < 1:
+        fail(f"a kernel of the 'auto' coupled step was not launched: "
+             f"{auto_launches}")
 
     # ---- phase timings on the main path's state -------------------------
     fc = main.forcing
@@ -255,9 +388,25 @@ def main() -> int:
     tr_ms = timed_ms(lambda: rx.horizontal_remap_exact(
         grid, main.state, main.static.registry, fc.Tf, dt,
         l_dp_midpt=True, flux_kernel="fused_full"), 5)
-    print(f"phases at gx1pop (320x384, ndte=120, NT=25, f32): dyn "
-          f"{dyn_ms:.3f} ms (K1 bound {k1_bound:.4f} ms), transport "
-          f"{tr_ms:.3f} ms (K2 bound {k2_bound:.4f} ms)")
+    tr3_ms = timed_ms(lambda: rx.horizontal_remap_exact(
+        grid, main.state, main.static.registry, fc.Tf, dt,
+        l_dp_midpt=True, flux_kernel="fused_pallas"), 5)
+    print(f"phases at gx1pop (320x384, ndte=120, NT=25, f32) on {smi[0]}: "
+          f"dyn {dyn_ms:.3f} ms (K1 bound {k1_bound:.4f} ms), transport "
+          f"through K2 {tr_ms:.3f} ms (K2 bound {k2_bound:.4f} ms), "
+          f"transport through K3 {tr3_ms:.3f} ms (K3 bound {k3_bound:.4f} "
+          f"ms)")
+    psteps = 2
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main.run(psteps, timer=timer)
+    phase_ms = {k: v / psteps for k, v in timer.totals().items()}
+    step_ms = (time.perf_counter() - t0) * 1e3 / psteps
+    print(f"coupled step on {smi[0]}: {step_ms:.3f} ms per step (host "
+          f"clock, {psteps} steps, no diagnostics), phases by CUDA events "
+          "(ms per step): " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in phase_ms.items()))
 
     results = [
         {"name": "evp_fused", "route": "cuda",
@@ -269,16 +418,35 @@ def main() -> int:
         {"name": "transport_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/transport_fused.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:653",
-         "launches": launches["transport_fused"], "max_abs_err": k2_abs,
+         "launches": auto_launches["transport_fused"],
+         "max_abs_err": k2_abs,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "tracer_fluxes", "route": "cuda",
+         "source": "cice_tpu_torch/csrc/tracer_fluxes.cu",
+         "replaces": "cice_tpu/kernels/remap_pallas.py:261",
+         "launches": launches["tracer_fluxes"], "max_abs_err": k3_abs,
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
     ]
     out = {"kernels": results}
+    # ridging passes on the main path's last state and deformation
+    *_, rdg = ridge_ice(scfg, s.aicen, s.vicen, s.vsnon, s.trcrn,
+                        divu=fl.divu, Delta=fl.Delta, dt=dt,
+                        hin_max=main.static.hin_max,
+                        registry=main.static.registry)
+    print(f"ridge_ice at gx1pop after {steps} steps: {rdg['npass']} "
+          "pass(es)")
+
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(out, gpu=smi[0], dyn_ms=dyn_ms, transport_ms=tr_ms,
-                       main_path_s=wall, k1_rel_err=k1_rel,
-                       k1_subcycles_ms=k1_loop,
+                       transport_k3_ms=tr3_ms, main_path_s=wall,
+                       step_ms=step_ms, phase_ms=phase_ms,
+                       k1_rel_err=k1_rel, k1_subcycles_ms=k1_loop,
+                       launches={"main": launches, "auto": auto_launches,
+                                 "dyn": dyn_launches},
+                       freshwater_residual=wres, ridge_passes=rdg["npass"],
                        transport_checks=tc), f, indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,14 @@ runs as Pallas TPU kernels. Entry points run on "cuda" unless the caller
 passes device="cpu"; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.
 
-Ported so far (slice 1): the dynamics-transport supercycle — B-grid EVP
-(fused CUDA kernel, kernels/evp.py) and exact incremental remapping (fused
-CUDA kernel, kernels/remap.py) — on the gx1 displaced-pole grid
-(`config.gx1pop_dyn`), driven by `model.driver.Model.run_dynamics`.
+Ported so far: the full coupled step in the default physics (BL99
+thermodynamics, ccsm3 shortwave, similarity boundary layer, level ponds,
+linear ITD remap, frazil and lateral melt, B-grid EVP, exact incremental
+remapping, ridging, slab ocean) on the gx1 displaced-pole grid
+(`config.gx1pop_step`), driven by `model.driver.Model.step` / `.run`; the
+kernels are the fused EVP subcycles (kernels/evp.py) and the one-pass and
+flux-only transport kernels (kernels/remap.py). `config.gx1pop_dyn` with
+`Model.run_dynamics` runs the dynamics-transport supercycle alone.
 """
 
-from .config import Config, gx1pop_dyn
+from .config import Config, gx1pop_dyn, gx1pop_step

@@ -562,15 +562,18 @@ def gx3_config() -> Config:
     return cfg
 
 
-def gx1pop_dyn(nx: int = 320, ny: int = 384) -> Config:
-    """The first port slice's configuration: the dynamics-transport
-    supercycle on the format-true gx1 displaced-pole POP grid (the
-    bench.py:95-106 overrides: 320x384, E-W cyclic, ndte=120, latitude
-    Coriolis), with the fused EVP kernel, remap_kernel='auto', ridging off
-    (it comes with the thermodynamics) and the box2001 wind stress passed
-    through (calc_strair=False). f32 with the default tracers (NT=25).
-    Smaller (nx, ny) give the same grid construction at test size; the
-    grid files are written under io.fixtures.fixtures_root()."""
+def gx1pop_step(nx: int = 320, ny: int = 384,
+                remap_kernel: str = "fused_pallas") -> Config:
+    """The full coupled step on the format-true gx1 displaced-pole POP grid
+    (the bench.py:95-106 overrides: 320x384, E-W cyclic, ndte=120, latitude
+    Coriolis) with the fused EVP kernel and everything else at the Config()
+    defaults: BL99 thermodynamics, linear ITD remap, ccsm3 shortwave, the
+    similarity boundary layer with calc_strair, age/FY/level-ice/level-pond
+    tracers (NT=25), ridging, the slab ocean, box2001 winds, f32.
+    remap_kernel='fused_pallas' runs the flux-only transport kernel,
+    'auto' the one-pass transport kernel (on a CUDA device), 'xla' the
+    plain path. Smaller (nx, ny) give the same grid construction at test
+    size; the grid files are written under io.fixtures.fixtures_root()."""
     from .io.fixtures import ensure_displaced_pole_grid
     fx = ensure_displaced_pole_grid(nx, ny)
     return Config().with_overrides(**{
@@ -580,6 +583,14 @@ def gx1pop_dyn(nx: int = 320, ny: int = 384) -> Config:
         "grid.ew_boundary_type": "cyclic",
         "dynamics.ndte": 120, "dynamics.coriolis": "latitude",
         "dynamics.evp_algorithm": "fused_pallas",
-        "dynamics.remap_kernel": "auto",
+        "dynamics.remap_kernel": remap_kernel})
+
+
+def gx1pop_dyn(nx: int = 320, ny: int = 384) -> Config:
+    """The dynamics-transport supercycle alone on the grid of
+    `gx1pop_step`: remap_kernel='auto', ridging off and the box2001 wind
+    stress passed through (calc_strair=False); driven by
+    Model.run_dynamics."""
+    return gx1pop_step(nx, ny, remap_kernel="auto").with_overrides(**{
         "dynamics.kridge": -1,
         "forcing.calc_strair": False})

@@ -3,17 +3,21 @@
 The tests extract numpy dicts from the JAX package's `Grid`, `State`,
 `Forcing` and `DynPrep` pytrees (one entry per dataclass field) and turn
 them into the port's tensors here, so both implementations see identical
-inputs; `*_to_numpy` goes back the other way.
+inputs; `*_to_numpy` goes back the other way. `tree_to_numpy` flattens any
+nest of dicts, lists, named tuples and tensors (a `FluxOut`'s dicts,
+`step_therm1`'s `agg`) to {dotted key: array} for key-by-key comparison.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .core.grid import GRID_FIELDS, BC, Grid, grid_from_arrays
 from .dynamics.common import DYNPREP_FIELDS, DynPrep
-from .model.flux import FORCING_FIELDS, Forcing
+from .model.flux import FLUXOUT_FIELDS, FORCING_FIELDS, FluxOut, Forcing
 from .model.state import STATE_PLANES, State
 
 
@@ -68,3 +72,45 @@ def dynprep_from_numpy(d: dict, device="cuda") -> DynPrep:
 
 def dynprep_to_numpy(prep: DynPrep) -> dict:
     return {k: _np(getattr(prep, k)) for k in DYNPREP_FIELDS}
+
+
+def fluxout_from_numpy(d: dict, device="cuda") -> FluxOut:
+    """FluxOut from {field: array} with 'ncat_fluxes' and
+    'transport_checks' {name: array} dicts."""
+    kw = {k: _t(d[k], device) for k in FLUXOUT_FIELDS}
+    for name in ("ncat_fluxes", "transport_checks"):
+        kw[name] = {k: _t(v, device) for k, v in d.get(name, {}).items()}
+    return FluxOut(**kw)
+
+
+def fluxout_to_numpy(flux: FluxOut) -> dict:
+    d = {k: _np(getattr(flux, k)) for k in FLUXOUT_FIELDS}
+    for name in ("ncat_fluxes", "transport_checks"):
+        d[name] = {k: _np(v) for k, v in getattr(flux, name).items()}
+    return d
+
+
+def tree_to_numpy(tree, prefix: str = "") -> dict:
+    """Flatten nested dicts / sequences / named tuples / dataclasses of
+    tensors (or of anything numpy converts) into {dotted key: array}; None
+    leaves and static grid attributes drop."""
+    if tree is None:
+        return {}
+    if isinstance(tree, torch.Tensor):
+        return {prefix: _np(tree)}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = [(f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)
+                 if f.name not in ("bc", "nx_global", "ny_global")]
+    elif isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(tree_to_numpy(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out

@@ -774,8 +774,10 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
     """Exact incremental remapping of the full ice state.
 
     flux_kernel: 'xla' runs the plain PyTorch path; 'fused_full' runs the
-    fused transport (kernels/remap.transport_fused), which launches the
-    CUDA kernel on CUDA tensors. Returns (new_state, diag) with 0-d
+    one-pass transport (kernels/remap.transport_fused) and 'fused_pallas'
+    the flux-only kernel (kernels/remap.tracer_fluxes_fused) between
+    `construct_fields` and `update_pre_floor`; both launch their CUDA
+    kernel on CUDA tensors and never fall back there. Returns (new_state, diag) with 0-d
     tensors 'oob', 'neg_mass', 'mono_violation', 'cons_err_area',
     'cons_err_tracer' (relative errors; 0 when checks are off) and
     'neg_mass_depth', the most negative ocean-cell mass before the floor,
@@ -784,13 +786,10 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
         raise NotImplementedError(
             "C/CD-grid transport is not ported yet (ROADMAP: C/CD, VP, EAP, "
             "upwind and vanleer)")
-    if flux_kernel == "fused_pallas":
-        raise NotImplementedError(
-            "the flux-only transport kernel (K3 tracer_fluxes_fused) is not "
-            "ported yet (ROADMAP: K3)")
-    if flux_kernel not in ("xla", "fused_full"):
-        raise ValueError(f"flux_kernel={flux_kernel!r}: expected 'xla' or "
-                         "'fused_full' ('auto' resolves in model/step)")
+    if flux_kernel not in ("xla", "fused_full", "fused_pallas"):
+        raise ValueError(f"flux_kernel={flux_kernel!r}: expected 'xla', "
+                         "'fused_full' or 'fused_pallas' ('auto' resolves "
+                         "in model/step)")
     table = build_flat_table(registry)
     am, trm = state_to_tracers(state, registry, table)
 
@@ -807,10 +806,17 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
         am_pre, trm_new = transport_fused(grid, mom_n.contiguous(),
                                           mom_e.contiguous(), am, trm, table)
     else:
-        mc, mx, my, tc, tx, ty, _ = construct_fields(grid, am, trm, table,
-                                                     grid.hm)
-        mflxe, mflxn, mtflxe, mtflxn = remap_fluxes(grid, dxs, dys, mc, mx,
-                                                    my, tc, tx, ty, table)
+        mc, mx, my, tc, tx, ty, tstack = construct_fields(grid, am, trm,
+                                                          table, grid.hm)
+        if flux_kernel == "fused_pallas":
+            from ..kernels.remap import tracer_fluxes_fused
+            mom_n, mom_e = edge_moments(grid, dxs, dys)
+            mflxe, mflxn, mtflxe, mtflxn = tracer_fluxes_fused(
+                grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table,
+                tstack=tstack)
+        else:
+            mflxe, mflxn, mtflxe, mtflxn = remap_fluxes(
+                grid, dxs, dys, mc, mx, my, tc, tx, ty, table)
         am_pre, trm_new = update_pre_floor(grid, am, trm, mflxe, mflxn,
                                            mtflxe, mtflxn, table)
     am_new, neg, depth = floor_mass(grid, am_pre)

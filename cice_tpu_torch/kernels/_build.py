@@ -17,7 +17,7 @@ import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("evp_fused", "transport_fused")
+SOURCES = ("evp_fused", "transport_fused", "tracer_fluxes")
 
 # -fmad=false keeps every multiply and add separately rounded, as the plain
 # PyTorch versions compute them, so kernel and plain version agree to

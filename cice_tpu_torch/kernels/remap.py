@@ -1,13 +1,21 @@
-"""Fused exact-remap transport: wrapper of the CUDA kernel
-csrc/transport_fused.cu.
+"""Exact-remap transport kernels: wrappers of the CUDA kernels
+csrc/transport_fused.cu and csrc/tracer_fluxes.cu.
 
 `transport_fused(grid, mom_n, mom_e, am, trm, table) -> (am_pre, trm_new)`
 computes reconstruction, edge fluxes and the flux-divergence update in one
 kernel launch; only the edge-moment geometry (`edge_moments`) stays outside.
 `am_pre` is the mass before the negative-mass floor (open-water row
-included). On CPU tensors it runs the plain PyTorch version,
-`transport_plain`. It replaces cice_tpu/kernels/remap_pallas.py:
-transport_fused.
+included). It replaces cice_tpu/kernels/remap_pallas.py:transport_fused.
+
+`tracer_fluxes_fused(grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table,
+tstack=...) -> (mflxe, mflxn, mtflxe, mtflxn)` computes only the edge
+fluxes from the reconstructed fields, between `construct_fields` and
+`update_pre_floor`. It replaces
+cice_tpu/kernels/remap_pallas.py:tracer_fluxes_fused.
+
+On CPU tensors each wrapper runs its plain PyTorch version
+(`transport_plain`, `tracer_fluxes_plain`); on CUDA tensors it launches its
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ from ..dynamics.remap_exact import (_TableArrays, construct_fields,
                                     fluxes_from_moments, update_pre_floor)
 from ._build import check, load
 
-#: times the CUDA kernel was launched
+#: times the one-pass transport kernel was launched
 launches = 0
+#: times the flux-only kernel was launched
+flux_launches = 0
 
 # thread-block tiles (x, y) in order of preference: the first whose shared
 # memory fits takes it (smaller tiles let larger tracer tables fit)
@@ -121,6 +131,108 @@ def transport_fused(grid: Grid, mom_n, mom_e, am, trm, table):
     return am_pre, trm_new
 
 
+def tracer_fluxes_plain(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
+                        table, *, tstack=None):
+    """Plain PyTorch version of the flux-only kernel."""
+    return fluxes_from_moments(grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
+                               table)
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _flux_lib():
+    lib = load("tracer_fluxes")
+    lib.tracer_fluxes.argtypes = [ctypes.c_void_p] * 15 + \
+        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tracer_fluxes.restype = ctypes.c_int
+    return lib
+
+
+def tracer_fluxes_fused(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
+                        table, *, tstack=None):
+    """Mass and mass*tracer transports across E and N edges in one kernel
+    launch; returns (mflxe, mflxn, mtflxe, mtflxn). tstack: the
+    (ncat, 3*NT, ny, nx) [tc|tx|ty] stack `construct_fields` returns;
+    without it the three are concatenated here."""
+    global flux_launches
+    if not _on_cuda(tc):
+        return tracer_fluxes_plain(grid, mom_n, mom_e, mc, mx, my, tc, tx,
+                                   ty, table)
+    if grid.bc.tripole or grid.bc.y_cyclic:
+        raise NotImplementedError(
+            "flux-only transport kernel: tripole/y-cyclic boundaries are not "
+            "ported yet (ROADMAP A3: tripole and y-cyclic boundaries)")
+    if tc.dtype != torch.float32:
+        raise ValueError("flux-only transport kernel is float32-only, got "
+                         f"{tc.dtype}; use remap_kernel='xla'")
+    if tstack is None:
+        tstack = torch.cat([tc, tx, ty], dim=1)
+    ncat, NT, ny, nx = tc.shape
+    if NT != len(table):
+        raise ValueError(f"tc has {NT} tracers, the table {len(table)}")
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    tstack, mc, mx, my, mom_n, mom_e = (
+        f32(t) for t in (tstack, mc, mx, my, mom_n, mom_e))
+    expect = {"tstack": (tstack, (ncat, 3 * NT, ny, nx)),
+              "mc": (mc, (ncat + 1, ny, nx)), "mx": (mx, (ncat + 1, ny, nx)),
+              "my": (my, (ncat + 1, ny, nx)),
+              "mom_n": (mom_n, (6, 10, ny, nx)),
+              "mom_e": (mom_e, (6, 10, ny, nx))}
+    for name, (t, shape) in expect.items():
+        if t.device != tc.device or tuple(t.shape) != shape:
+            raise ValueError(f"flux-only transport kernel: {name} must have "
+                             f"shape {shape} on {tc.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if grid.shape != (ny, nx):
+        raise ValueError("flux-only transport kernel: grid shape mismatch")
+    # temporaries may be freed before the kernel runs: see transport_fused
+    afn = f32(grid.narea * grid.npm)
+    afe = f32(grid.earea * grid.epm)
+    ttype, par, gpar, _, _ = _table_tensors(table, tc.device)
+    mflxe = torch.empty_like(mc)
+    mflxn = torch.empty_like(mc)
+    mtflxe = torch.empty_like(tc, memory_format=torch.contiguous_format)
+    mtflxn = torch.empty_like(mtflxe)
+    stream = torch.cuda.current_stream(tc.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (tstack, mc, mx, my, mom_n, mom_e, afn,
+                                   afe, ttype, par, gpar, mflxe, mflxn,
+                                   mtflxe, mtflxn)]
+    err = _flux_lib().tracer_fluxes(*ptrs, ncat, NT, ny, nx,
+                                    int(grid.bc.x_cyclic), stream)
+    check(err, "tracer_fluxes")
+    flux_launches += 1
+    return mflxe, mflxn, mtflxe, mtflxn
+
+
+#: flops of one tracer's candidate term by chain type (the sums of
+#: csrc/*.cu: 5 / 15+5 / 15+5+1, plus the accumulation)
+_CHAIN_FLOPS = {1: 6, 2: 21, 3: 22}
+
+
+def _edge_flops(table, ncat: int) -> int:
+    """Flops of one edge of one cell over all categories: per candidate the
+    six moment sums (30) and the mass sum, per tracer its 6 candidate terms
+    and the scaling by the edge area; the open-water row once."""
+    return ncat * (6 * 31 + sum(6 * _CHAIN_FLOPS[f.ttype] + 2
+                                for f in table)) + 6 * 6
+
+
+def tracer_fluxes_bound_bytes_flops(table, ncat: int, ny: int, nx: int):
+    """(bytes, flops) one flux pass must move and do, counted from
+    csrc/tracer_fluxes.cu. Bytes: the 3*NT reconstruction planes per
+    category, the 3 mass reconstruction planes per category and for open
+    water, the 120 moment planes and 2 edge-area planes read once; the two
+    families' mass (ncat+1) and tracer (ncat*NT) flux planes written once.
+    Flops: 2 edges per cell."""
+    NT = len(table)
+    P = ny * nx
+    nbytes = 4 * P * (3 * ncat * NT + 3 * (ncat + 1) + 120 + 2
+                      + 2 * (ncat * NT + ncat + 1))
+    return nbytes, P * 2 * _edge_flops(table, ncat)
+
+
 def bound_bytes_flops(table, ncat: int, ny: int, nx: int):
     """(bytes, flops) one transport pass must move and do, counted from
     csrc/transport_fused.cu (a sqrt, divide, min or max counts as one).
@@ -136,7 +248,5 @@ def bound_bytes_flops(table, ncat: int, ny: int, nx: int):
     ttypes = [f.ttype for f in table]
     recon = (ncat + 1) * (lim + 7) + ncat * sum(
         {1: lim + 4, 2: lim + 43, 3: 0}[t] for t in ttypes)
-    per_edge = ncat * (6 * 31 + sum(6 * {1: 6, 2: 21, 3: 22}[t] + 2
-                                    for t in ttypes)) + 6 * 6
     update = ncat * (NT * 11 + 6) + 3
-    return nbytes, P * (recon + 2 * per_edge + update)
+    return nbytes, P * (recon + 2 * _edge_flops(table, ncat) + update)

@@ -1,11 +1,13 @@
-"""Model driver (PyTorch port of the initialization part of
-cice_tpu/model/driver.py; reference CICE_InitMod.F90 `cice_init`,
-ice_init.F90 `set_state_var`:3266).
+"""Model driver (PyTorch port of cice_tpu/model/driver.py; reference
+CICE_InitMod.F90 `cice_init`, ice_init.F90 `set_state_var`:3266, the loop
+body of CICE_RunMod.F90 `ice_step`).
 
 `Model` owns config, grid, static tables, forcing and the prognostic state
-on one device. `run_dynamics(n)` advances n dynamics-transport supercycles
-(`step_dyn_transport`); the full coupled `Model.step`/`Model.run` come with
-ROADMAP: slice 2.
+on one device. `step()` / `run(n)` advance the full coupled step
+(`model_step`) with the diagnostics and aborts at `diagfreq`;
+`run_dynamics(n)` advances only the dynamics-transport-ridging supercycle
+(`step_dyn_transport`) under the data wind stress. The calendar, history,
+restarts, prescribed ice and restoring wait for ROADMAP A2/A7.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..core.grid import Grid, make_grid
 from .flux import zeros_forcing
 from .forcing import default_ocn, get_forcing
 from .state import State, zeros_state
-from .step import ModelStatic, step_dyn_transport
+from .step import ModelStatic, model_step, step_dyn_transport
 
 
 def _scalar(v, dtype, device) -> torch.Tensor:
@@ -65,8 +67,8 @@ def set_state_var(cfg, grid: Grid, state: State, Tf) -> State:
 
     if cfg.thermo.ktherm == 2:
         raise NotImplementedError(
-            "mushy (ktherm=2) initial enthalpy is not ported yet (ROADMAP: "
-            "column options)")
+            "mushy (ktherm=2) initial enthalpy is not ported yet (ROADMAP "
+            "A6: column options)")
     qice = []
     for k in range(nilyr):
         zf = (k + 0.5) / nilyr
@@ -139,9 +141,21 @@ class Model:
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Model(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
-        if cfg.setup.runtype == "continue":
+        s = cfg.setup
+        if s.runtype == "continue":
             raise NotImplementedError(
-                "restarts are not ported yet (ROADMAP: restart and history)")
+                "restarts are not ported yet (ROADMAP A2: restart and "
+                "history)")
+        if (s.month_init, s.day_init, s.sec_init) != (1, 1, 0) or \
+                s.calendar_type != "noleap" or s.use_leap_years:
+            raise NotImplementedError(
+                "the calendar is not ported yet (ROADMAP A2): the port "
+                "counts a 365-day year from January 1st")
+        if s.prescribed_ice or cfg.forcing.restore_ice or \
+                cfg.forcing.restore_ocn:
+            raise NotImplementedError(
+                "prescribed ice and restoring are not ported yet (ROADMAP "
+                "A7)")
         self.cfg = cfg
         self.device = device
         self.grid = grid if grid is not None else make_grid(cfg, device)
@@ -157,25 +171,109 @@ class Model:
             self.state = set_state_var(cfg, self.grid, self.state,
                                        self.forcing.Tf)
         self.istep = 0
+        self.flux = None
         self.dyn_diags: dict = {}
         self.tchecks: dict = {}
+        self.diag_log: list = []
 
     @property
     def elapsed_seconds(self) -> float:
         return self.istep * self.cfg.setup.dt
 
-    def run_dynamics(self, n: int = 1) -> State:
-        """Advance n thermo steps of the dynamics-transport supercycle,
-        with the forcing updated each step."""
+    @property
+    def yday(self) -> float:
+        """Fractional day of a 365-day year (1-based)."""
+        return 1.0 + (self.elapsed_seconds % (365.0 * cst.secday)) / \
+            cst.secday
+
+    @property
+    def year(self) -> int:
+        return self.cfg.setup.year_init + \
+            int(self.elapsed_seconds // (365.0 * cst.secday))
+
+    def step(self, timer=None) -> State:
+        """One full coupled step: forcing, `model_step`, the yearly onset
+        reset and, every `diagfreq` steps, the diagnostics with the
+        freshwater-budget, non-finite-state and transport-check aborts.
+        `timer` is handed to `model_step`."""
         cfg = self.cfg
-        if cfg.forcing.calc_strair:
-            raise NotImplementedError(
-                "calc_strair=True needs the thermodynamic boundary layer "
-                "(ROADMAP: slice 2); use forcing.calc_strair=False")
+        dt = cfg.setup.dt
+        state_pre = self.state
+        fc = get_forcing(cfg, self.grid, self.elapsed_seconds, self.yday,
+                         self.state.aice, self.forcing)
+        self.forcing = fc
+        self.state, self.flux = model_step(self.static, self.grid,
+                                           self.state, fc, dt, timer=timer)
+        self.tchecks = self.flux.transport_checks
+        prev_year = self.year
+        self.istep += 1
+        if self.year != prev_year:
+            z = torch.zeros_like(self.state.mlt_onset)
+            self.state = self.state.replace(mlt_onset=z, frz_onset=z)
+        if cfg.setup.diagfreq and self.istep % cfg.setup.diagfreq == 0:
+            self.diag_log.append(self._diagnose(state_pre))
+        return self.state
+
+    def _diagnose(self, state_pre: State) -> dict:
+        """The diagfreq record; raises on a violated conservation check."""
+        from .diagnostics import (check_state, hemispheric_budgets,
+                                  runtime_diags, total_energy,
+                                  total_water_mass)
+        cfg = self.cfg
+        rec = {k: float(v)
+               for k, v in runtime_diags(self.grid, self.state).items()}
+        if not cfg.setup.conserv_check:
+            return rec
+        rec["total_energy"] = float(total_energy(self.grid, self.state))
+        rec["total_water"] = float(total_water_mass(self.grid, self.state))
+        bud = hemispheric_budgets(
+            self.grid, state_pre, self.state, self.flux, self.forcing,
+            cfg.setup.dt, frazil_in_fresh=cfg.forcing.update_ocn_f,
+            pond_lvl=cfg.tracers.tr_pond_lvl)
+        rec.update({f"bud_{k}": float(v) for k, v in bud.items()})
+        # the water budget closes to ~5e-4 relative (a small snow-ice
+        # bookkeeping term); 1% catches any genuinely lost budget term
+        wscale = max(abs(rec["bud_dM"]), abs(rec["bud_water_in"]), 1.0)
+        if abs(rec["bud_water_residual"]) > 1e-2 * wscale:
+            raise RuntimeError(
+                f"freshwater budget closure violated at step {self.istep}: "
+                f"residual {rec['bud_water_residual']:.3e} kg vs budget "
+                f"{wscale:.3e} kg")
+        if bool(check_state(self.state)["nonfinite"]):
+            raise FloatingPointError(
+                f"non-finite state at step {self.istep}")
+        tc = self.flux.transport_checks
+        if tc:
+            tol = 1e-9 if self.state.aicen.dtype == torch.float64 else 1e-4
+            cons = max(float(tc.get("cons_err_area", 0.0)),
+                       float(tc.get("cons_err_tracer", 0.0)))
+            rec["transport_cons_err"] = cons
+            bad = [msg for key, msg in (
+                ("oob", "departure points out of bounds"),
+                ("neg_mass", "negative mass after remap"),
+                ("mono_violation", "tracer monotonicity violation"))
+                if bool(tc.get(key, False))]
+            if cons > tol:
+                bad.append(f"global conservation error {cons:.3e}")
+            if bad:
+                raise RuntimeError(f"transport check failed at step "
+                                   f"{self.istep}: {'; '.join(bad)}")
+        return rec
+
+    def run(self, n: int = 1, timer=None) -> State:
+        """Advance n full coupled steps."""
+        for _ in range(n):
+            self.step(timer=timer)
+        return self.state
+
+    def run_dynamics(self, n: int = 1) -> State:
+        """Advance n thermo steps of the dynamics-transport-ridging
+        supercycle alone, under the data wind stress of the forcing
+        (`strax`/`stray`), with the forcing updated each step."""
+        cfg = self.cfg
         dt = cfg.setup.dt
         for _ in range(n):
-            t = self.elapsed_seconds
-            fc = get_forcing(cfg, self.grid, t, 1.0 + t / cst.secday,
+            fc = get_forcing(cfg, self.grid, self.elapsed_seconds, self.yday,
                              self.state.aice, self.forcing)
             self.forcing = fc
             self.state, self.dyn_diags, self.tchecks = step_dyn_transport(

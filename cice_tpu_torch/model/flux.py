@@ -1,6 +1,5 @@
-"""Forcing fields exchanged with atmosphere and ocean (PyTorch port of the
-`Forcing` part of cice_tpu/model/flux.py). `FluxOut` comes with the full
-model step (ROADMAP: slice 2)."""
+"""Flux fields exchanged with atmosphere and ocean (PyTorch port of
+cice_tpu/model/flux.py): `Forcing` goes in, `FluxOut` comes out of a step."""
 
 from __future__ import annotations
 
@@ -79,3 +78,102 @@ def zeros_forcing(shape, dtype=torch.float32, device="cuda") -> Forcing:
         faero_atm=torch.zeros((0,) + tuple(shape), **kw),
         fiso_atm=torch.zeros((0,) + tuple(shape), **kw),
     )
+
+
+@dataclass(frozen=True)
+class FluxOut:
+    """Cell-mean output fluxes & diagnostics of one step (coupler fields +
+    history sources)."""
+    # atm
+    fsens: torch.Tensor
+    flat: torch.Tensor
+    flwout: torch.Tensor
+    evap: torch.Tensor
+    fswabs: torch.Tensor
+    strairx: torch.Tensor   # wind stress on ice (N/m^2)
+    strairy: torch.Tensor
+    # ocn
+    fhocn: torch.Tensor     # net heat to ocean (W/m^2)
+    fresh: torch.Tensor     # fresh water to ocean (kg/m^2/s)
+    fsalt: torch.Tensor     # salt to ocean (kg/m^2/s)
+    fswthru: torch.Tensor   # SW through ice to ocean (W/m^2)
+    strocnx: torch.Tensor   # ice-ocean stress at U (N/m^2)
+    strocny: torch.Tensor
+    # mass-budget diagnostics (m/step)
+    meltt: torch.Tensor
+    meltb: torch.Tensor
+    melts: torch.Tensor
+    meltl: torch.Tensor
+    congel: torch.Tensor
+    frazil: torch.Tensor
+    snoice: torch.Tensor
+    # radiation
+    alvdr: torch.Tensor
+    alvdf: torch.Tensor
+    alidr: torch.Tensor
+    alidf: torch.Tensor
+    albice: torch.Tensor
+    fsurf: torch.Tensor     # net surface flux diagnostic
+    fcondtop: torch.Tensor
+    # dynamics diagnostics
+    divu: torch.Tensor      # velocity divergence (1/s)
+    shear: torch.Tensor     # shear deformation rate
+    Delta: torch.Tensor     # total deformation
+    strintx: torch.Tensor   # internal stress divergence at U (N/m^2)
+    strinty: torch.Tensor
+    taubx: torch.Tensor     # seabed (basal) stress (N/m^2)
+    tauby: torch.Tensor
+    strength: torch.Tensor  # ice compressive strength (N/m)
+    # mechanical redistribution rates
+    dardg1dt: torch.Tensor  # area rate ridged
+    dardg2dt: torch.Tensor  # area rate of new ridges
+    dvirdgdt: torch.Tensor  # volume rate ridged
+    opening: torch.Tensor   # lead opening rate
+    # state tendencies split thermo vs dynamics
+    daidtt: torch.Tensor    # area tendency, thermodynamics (1/s)
+    dvidtt: torch.Tensor    # volume tendency, thermodynamics (m/s)
+    daidtd: torch.Tensor    # area tendency, dynamics (1/s)
+    dvidtd: torch.Tensor    # volume tendency, dynamics (m/s)
+    # reference-height diagnostics
+    Tref: torch.Tensor      # 2 m air temperature (K)
+    Qref: torch.Tensor      # 2 m specific humidity (kg/kg)
+    Uref: torch.Tensor      # 10 m wind speed (m/s)
+    # extended diagnostics
+    fbot: torch.Tensor      # ocean heat used at the ice bottom (W/m^2, cell)
+    fcondbot: torch.Tensor  # conductive flux at the ice bottom (W/m^2)
+    fswint: torch.Tensor    # SW absorbed in the ice interior (W/m^2)
+    fpond: torch.Tensor     # pond freshwater retention flux (kg/m^2/s)
+    apeff: torch.Tensor     # radiatively-effective pond fraction (cell mean)
+    meltsliq: torch.Tensor  # snow liquid runoff (kg/m^2, per step)
+    snowfrac: torch.Tensor  # snow-covered fraction of the cell
+    albsno: torch.Tensor    # broadband albedo contribution, snow surface
+    albpnd: torch.Tensor    # broadband albedo contribution, ponds
+    dvsdtd: torch.Tensor    # snow volume tendency, dynamics (m/s)
+    dvsdtt: torch.Tensor    # snow volume tendency, thermo (m/s)
+    dagedtt: torch.Tensor   # mean ice-age tendency, thermo (s/s)
+    dagedtd: torch.Tensor   # mean ice-age tendency, dynamics (s/s)
+    # pond water budget terms, cell mean (m of water per step)
+    dpnd_initial: torch.Tensor
+    dpnd_expon: torch.Tensor
+    dpnd_freebd: torch.Tensor
+    dpnd_dlid: torch.Tensor
+    # per-category / extra history planes, pre-weighted by category area
+    ncat_fluxes: dict
+    # transport safety-rail scalars (remap oob/neg-mass/monotonicity flags
+    # and conservation errors)
+    transport_checks: dict
+
+    def replace(self, **kw) -> "FluxOut":
+        return dataclasses.replace(self, **kw)
+
+
+#: every (ny, nx) tensor field of FluxOut, in declaration order
+FLUXOUT_FIELDS = tuple(
+    f.name for f in dataclasses.fields(FluxOut)
+    if f.name not in ("ncat_fluxes", "transport_checks"))
+
+
+def zeros_fluxout(shape, dtype=torch.float32, device="cuda") -> FluxOut:
+    z = lambda: torch.zeros(tuple(shape), dtype=dtype, device=device)
+    return FluxOut(ncat_fluxes={}, transport_checks={},
+                   **{n: z() for n in FLUXOUT_FIELDS})

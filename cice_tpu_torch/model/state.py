@@ -111,7 +111,7 @@ def tracer_registry(cfg) -> tuple[TracerSpec, ...]:
             specs.append(TracerSpec("bgc_hum", DEP_AICE))
     if getattr(cfg, "zbgc", None) is not None and cfg.zbgc.z_tracers:
         raise NotImplementedError(
-            "zbgc z_tracers are not ported yet (ROADMAP: column options)")
+            "zbgc z_tracers are not ported yet (ROADMAP A6: column options)")
     return tuple(specs)
 
 

@@ -7,7 +7,7 @@ machine run them with
 
 (`--noconftest`: tests/conftest.py sets up JAX, which that machine lacks.)
 
-Both kernels keep every multiply and add separately rounded (nvcc
+The kernels keep every multiply and add separately rounded (nvcc
 -fmad=false), so they agree with the plain versions to f32 rounding of the
 summation order; the bars are the JAX package's engine-vs-engine gates.
 """
@@ -97,6 +97,59 @@ def test_transport_kernel_matches_plain(cuda, ew):
         scale = float(r.abs().max()) or 1.0
         torch.testing.assert_close(got_trm[:, n], r, rtol=5e-4,
                                    atol=5e-5 * scale)
+
+
+@pytest.mark.parametrize("ew", ["cyclic", "open"])
+def test_tracer_fluxes_kernel_matches_plain(cuda, ew):
+    m = _model(cuda, ew)
+    g, dt = m.grid, m.cfg.setup.dt
+    st, _ = step_dyn_horiz(m.static, g, m.state, m.forcing,
+                           m.forcing.strax + 0.1, m.forcing.stray + 0.05, dt)
+    table = rx.build_flat_table(m.static.registry)
+    am, trm = rx.state_to_tracers(st, m.static.registry, table)
+    dxs, dys, _ = rx.departure_points_scaled(g, st.uvel, st.vvel, dt, True)
+    mom_n, mom_e = rx.edge_moments(g, dxs, dys)
+    mc, mx, my, tc, tx, ty, tstack = rx.construct_fields(g, am, trm, table,
+                                                         g.hm)
+    args = (g, mom_n, mom_e, mc, mx, my, tc, tx, ty, table)
+    before = kremap.flux_launches
+    ref = kremap.tracer_fluxes_plain(*args)
+    got = kremap.tracer_fluxes_fused(*args, tstack=tstack)
+    alone = kremap.tracer_fluxes_fused(*args)      # packs tc|tx|ty itself
+    torch.cuda.synchronize()
+    assert kremap.flux_launches == before + 2
+    for name, a, b, r in zip(("mflxe", "mflxn", "mtflxe", "mtflxn"), got,
+                             alone, ref):
+        scale = float(r.abs().max())
+        assert scale > 0, name
+        torch.testing.assert_close(a, r, rtol=2e-5, atol=2e-6 * scale)
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+
+
+def test_coupled_step_goes_through_its_kernels(cuda):
+    """Model.run on a card: 'fused_pallas' launches K1 + K3, 'auto' K1 + K2,
+    and both agree with the plain path."""
+    states = {}
+    for rk in ("fused_pallas", "auto", "xla"):
+        cfg = tconfig.gx1pop_step(48, 40, remap_kernel=rk).with_overrides(**{
+            "dynamics.ndte": 40, "setup.conserv_check": True,
+            "dynamics.evp_algorithm":
+                "standard_2d" if rk == "xla" else "fused_pallas"})
+        m = Model(cfg, device=cuda)
+        kevp.launches = kremap.launches = kremap.flux_launches = 0
+        m.run(2)
+        torch.cuda.synchronize()
+        counts = (kevp.launches, kremap.launches, kremap.flux_launches)
+        assert counts == {"fused_pallas": (2, 0, 2), "auto": (2, 2, 0),
+                          "xla": (0, 0, 0)}[rk]
+        assert not bool(m.tchecks["oob"])
+        assert float(m.tchecks["cons_err_area"]) < 1e-5
+        states[rk] = m.state
+    for rk in ("fused_pallas", "auto"):
+        for k in ("aicen", "vicen", "vsnon", "uvel", "sst"):
+            torch.testing.assert_close(getattr(states[rk], k),
+                                       getattr(states["xla"], k),
+                                       rtol=1e-3, atol=1e-4)
 
 
 def test_main_path_goes_through_both_kernels(cuda):

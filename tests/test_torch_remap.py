@@ -1,15 +1,17 @@
 """PyTorch port vs JAX package: exact incremental remapping
-(cice_tpu_torch.dynamics.remap_exact) stage by stage in f64, and the fused
-transport kernel's wrapper (cice_tpu_torch.kernels.remap), whose CPU path
-is the plain construct -> fluxes -> update chain, against the JAX Pallas
-kernel run by the interpreter.
+(cice_tpu_torch.dynamics.remap_exact) stage by stage in f64, and the
+wrappers of the one-pass and the flux-only transport kernels
+(cice_tpu_torch.kernels.remap), whose CPU paths are the plain versions,
+against the JAX Pallas kernels run by the interpreter.
 
 Tolerances: f64 stages repeat the JAX expressions, so they agree to 1e-10
 relative to each field's largest value (reduction order only). The f32
 kernel comparison uses the JAX package's own engine-vs-engine bar
 (tests/test_remap_pallas.py:131-143): area rtol 1e-5, tracers rtol 5e-4
 with atol 5e-5 of each field's scale; conservation of area 1e-5 and of
-tracer content 1e-4.
+tracer content 1e-4. The flux-only kernel is held to the JAX package's gate
+for it (tests/test_remap_pallas.py:47-67): rtol 2e-5, atol 2e-6 of each
+output's largest value.
 """
 
 import dataclasses
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # small shapes: leave the cores to other workers
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -26,6 +29,7 @@ from cice_tpu.config import Config  # noqa: E402
 from cice_tpu.core.grid import rectgrid as jrectgrid  # noqa: E402
 from cice_tpu.core.halo import BC as JBC  # noqa: E402
 from cice_tpu.dynamics import remap_exact as jrx  # noqa: E402
+from cice_tpu.kernels.remap_pallas import tracer_fluxes_fused as jflux  # noqa: E402
 from cice_tpu.kernels.remap_pallas import transport_fused as jfused  # noqa: E402
 from cice_tpu.model.state import tracer_registry as jreg  # noqa: E402
 from cice_tpu.model.state import zeros_state as jzeros  # noqa: E402
@@ -273,12 +277,135 @@ def test_knife_edge_chain_no_amplification():
     assert t.min() >= -100.0 - 1e-6 and t.max() <= 1e-6
 
 
+FLUX_NAMES = ("mflxe", "mflxn", "mtflxe", "mtflxn")
+
+
+def _flux_inputs(dtype, ew, ns, seed):
+    """Random reconstructed fields, tracers with every chain type (the
+    6-tracer tables) and edge moments of a moving velocity field on a
+    16x16 grid with the given boundaries, as numpy."""
+    jt, tt = _small_tables()
+    ncat, ny, nx = 2, 16, 16
+    jdt = jnp.dtype(dtype)
+    jg = jrectgrid(nx, ny, kmt_type="default", dtype=jdt, bc=JBC(ew, ns))
+    tg = convert.grid_from_numpy(_np(jg), TBC(ew, ns), "cpu")
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.random(s).astype(dtype)
+    f = dict(mc=r(ncat + 1, ny, nx), mx=0.1 * (r(ncat + 1, ny, nx) - 0.5),
+             my=0.1 * (r(ncat + 1, ny, nx) - 0.5),
+             tc=1.0 + r(ncat, len(jt), ny, nx),
+             tx=0.2 * (r(ncat, len(jt), ny, nx) - 0.5),
+             ty=0.2 * (r(ncat, len(jt), ny, nx) - 0.5))
+    dx_m = float(np.asarray(jg.dxU)[0, 0])
+    u = 0.3 * dx_m / 3600.0 * (2.0 * r(ny, nx) - 1.0)
+    v = 0.3 * dx_m / 3600.0 * (2.0 * r(ny, nx) - 1.0)
+    dxs, dys, _ = jrx.departure_points_scaled(jg, jnp.asarray(u),
+                                              jnp.asarray(v), 3600.0, True)
+    return jg, tg, jt, tt, f, dxs, dys
+
+
+BOUNDARIES = [("cyclic", "open"), ("open", "open"), ("closed", "closed")]
+
+
+@pytest.mark.parametrize("ew,ns", BOUNDARIES)
+def test_tracer_fluxes_plain_matches_jax_f64(ew, ns):
+    """The flux-only kernel's plain version against the JAX package's plain
+    `remap_fluxes` in f64: same expressions, reduction order only."""
+    jg, tg, jt, tt, f, dxs, dys = _flux_inputs("float64", ew, ns, 11)
+    order = ("mc", "mx", "my", "tc", "tx", "ty")
+    ref = jrx.remap_fluxes(jg, dxs, dys, *(jnp.asarray(f[k]) for k in order),
+                           jt)
+    mom_n, mom_e = (torch.as_tensor(np.array(m))
+                    for m in jrx.edge_moments(jg, dxs, dys))
+    got = tkremap.tracer_fluxes_plain(
+        tg, mom_n, mom_e, *(torch.as_tensor(f[k]) for k in order), tt)
+    for name, a, b in zip(FLUX_NAMES, got, ref):
+        _close(a, b, 1e-12, name)
+
+
+@pytest.mark.parametrize("ew,ns", BOUNDARIES)
+def test_tracer_fluxes_wrapper_cpu_matches_jax_pallas_interpret(ew, ns):
+    """The K3 wrapper on CPU tensors (its plain version) against the JAX
+    Pallas flux kernel run by the interpreter, in f32."""
+    jg, tg, jt, tt, f, dxs, dys = _flux_inputs("float32", ew, ns, 12)
+    order = ("mc", "mx", "my", "tc", "tx", "ty")
+    jmom = jrx.edge_moments(jg, dxs, dys)
+    ref = jax.jit(lambda: jflux(
+        jg, *jmom, *(jnp.asarray(f[k]) for k in order), jt,
+        interpret=True))()
+    T = torch.as_tensor
+    before = tkremap.flux_launches
+    tstack = torch.cat([T(f["tc"]), T(f["tx"]), T(f["ty"])], dim=1)
+    got = tkremap.tracer_fluxes_fused(
+        tg, T(np.array(jmom[0])), T(np.array(jmom[1])),
+        *(T(f[k]) for k in order), tt, tstack=tstack)
+    assert tkremap.flux_launches == before   # CPU tensors: the plain version
+    for name, a, b in zip(FLUX_NAMES, got, ref):
+        b = np.asarray(b)
+        scale = float(np.abs(b).max())
+        assert scale > 0, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-5,
+                                   atol=2e-6 * scale, err_msg=name)
+
+
+def test_fused_pallas_route_equals_plain_route_on_cpu():
+    """horizontal_remap_exact(flux_kernel='fused_pallas') on CPU tensors
+    runs construct -> K3's plain version -> update: the 'xla' result."""
+    cfg, jg, tg, st, ts, Tf = _setup("float32", seed=6)
+    reg = treg(tconfig.Config())
+    kw = dict(l_dp_midpt=True, conserv_check=True)
+    a, da = trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf),
+                                       3600.0, flux_kernel="xla", **kw)
+    b, db = trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf),
+                                       3600.0, flux_kernel="fused_pallas",
+                                       **kw)
+    ta, tb = convert.state_to_numpy(a), convert.state_to_numpy(b)
+    for k in ("aicen", "vicen", "vsnon"):
+        np.testing.assert_array_equal(tb[k], ta[k], err_msg=k)
+    for k in ta["trcrn"]:
+        np.testing.assert_array_equal(tb["trcrn"][k], ta["trcrn"][k],
+                                      err_msg=k)
+    for k in da:
+        assert float(da[k]) == float(db[k]), k
+
+
+@pytest.mark.parametrize("case", ["tripole", "y_cyclic", "float64"])
+def test_tracer_fluxes_ineligible_on_cuda_raise(monkeypatch, case):
+    """On a CUDA device the flux-only kernel never falls back: tripole and
+    y-cyclic boundaries and f64 raise. The device check is patched, so no
+    card is needed; the raise comes before anything is built."""
+    monkeypatch.setattr(tkremap, "_on_cuda", lambda t: True)
+    dtype = "float64" if case == "float64" else "float32"
+    jg, tg, jt, tt, f, dxs, dys = _flux_inputs(dtype, "cyclic", "open", 13)
+    if case == "tripole":
+        tg = dataclasses.replace(tg, bc=TBC("cyclic", "tripole"))
+    elif case == "y_cyclic":
+        tg = dataclasses.replace(tg, bc=TBC("cyclic", "cyclic"))
+    mom = torch.zeros((6, 10, 16, 16), dtype=getattr(torch, dtype))
+    args = [torch.as_tensor(f[k])
+            for k in ("mc", "mx", "my", "tc", "tx", "ty")]
+    exc = ValueError if case == "float64" else NotImplementedError
+    with pytest.raises(exc, match="flux-only transport kernel"):
+        tkremap.tracer_fluxes_fused(tg, mom, mom, *args, tt)
+
+
+def test_tracer_fluxes_bound_counts_planes():
+    """The byte bound counts every plane once: at the gx1 shapes with the
+    default tracers, 515 planes read and 262 written."""
+    table = trx.build_flat_table(treg(tconfig.Config()))
+    nbytes, flops = tkremap.tracer_fluxes_bound_bytes_flops(table, 5, 384,
+                                                            320)
+    assert len(table) == 25
+    assert nbytes == 4 * 384 * 320 * (375 + 18 + 120 + 2 + 2 * (125 + 6))
+    assert flops > 0
+
+
 def test_unported_engines_raise():
     cfg, jg, tg, st, ts, Tf = _setup("float32", nx=8, ny=8)
     reg = treg(tconfig.Config())
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="flux_kernel"):
         trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf), 60.0,
-                                   flux_kernel="fused_pallas")
+                                   flux_kernel="fused")
     with pytest.raises(NotImplementedError, match="C/CD"):
         trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf), 60.0,
                                    grid_ice="C")

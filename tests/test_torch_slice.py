@@ -134,14 +134,3 @@ def test_model_cuda_without_gpu_raises(monkeypatch):
     tcfg, _ = _cfgs("fused_pallas")
     with pytest.raises(RuntimeError, match="CUDA"):
         tdriver.Model(tcfg, device="cuda")
-
-
-@pytest.mark.parametrize("over", [{"forcing.calc_strair": True},
-                                  {"dynamics.kridge": 1}])
-def test_thermo_coupled_options_need_slice_two(over):
-    """The boundary-layer wind stress and ridging come with slice 2; until
-    then they raise instead of being skipped."""
-    tcfg, _ = _cfgs("standard_2d")
-    m = tdriver.Model(tcfg.with_overrides(**over), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        m.run_dynamics(1)
