@@ -6,8 +6,10 @@
 Builds the hand-written CUDA kernels from cice_tpu_torch/csrc (one nvcc
 per source, started together), then:
 
-  1. K1 (fused EVP subcycles) against the plain `evp_solve` on gx1-size
-     EVP inputs (the bench.py `_evp_problem` recipe, rebuilt in the port);
+  1. K1 (fused EVP solve) against the plain `evp_solve` on gx1-size EVP
+     inputs with nonzero incoming stresses (`measure.evp_problem`): the
+     persistent route, which gx1 must take, and the stream route once,
+     each of the nine outputs gated on both;
   2. K2 (fused transport) against the plain remap path on the slice's
      initial state, moved by one EVP solve so the ice is in motion;
   3. K3 (flux-only transport) against its plain version on the same moving
@@ -38,7 +40,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -52,22 +53,6 @@ F32_FLOPS_PER_S = 67e12
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def timed_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean ms per call by CUDA events, after `warmup` calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -120,11 +105,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from cice_tpu_torch import config as C
-    from cice_tpu_torch.columns.ridging import ice_strength, ridge_ice
+    from cice_tpu_torch.columns.ridging import ridge_ice
     from cice_tpu_torch.dynamics import remap_exact as rx
-    from cice_tpu_torch.dynamics.common import dyn_prep, evp_params
     from cice_tpu_torch.dynamics.evp import evp_solve
     from cice_tpu_torch.kernels import _build, evp as kevp, remap as kremap
+    from cice_tpu_torch.measure import (evp_problem,
+                                        gpu_name_and_power_limit, timed_ms)
     from cice_tpu_torch.model.diagnostics import check_state
     from cice_tpu_torch.model.driver import Model
     from cice_tpu_torch.model.flux import FLUXOUT_FIELDS
@@ -134,10 +120,8 @@ def main() -> int:
     _build.build()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"({_build.build_dir()})")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    print(smi[0])
+    smi = gpu_name_and_power_limit()
+    print(smi)
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
@@ -145,57 +129,96 @@ def main() -> int:
     cfg = C.gx1pop_dyn().with_overrides(**{"setup.conserv_check": True})
     dt = cfg.setup.dt
 
-    # ---- K1: fused EVP vs plain evp_solve (bench._evp_problem recipe) ---
+    # ---- K1: fused EVP vs plain evp_solve ------------------------------
     m = Model(cfg, device=dev)
     grid = m.grid
     ny, nx = grid.shape
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    tm = grid.tmask.to(torch.float32)
-    aice = (torch.clamp(0.5 + 0.5 * torch.rand(grid.shape, generator=gen),
-                        0, 1).to(dev) * tm)
-    vice = aice * 2.0
-    z = torch.zeros(grid.shape, device=dev)
-    prep = dyn_prep(grid, cfg.dynamics, dt, aice=aice, vice=vice, vsno=z,
-                    aiceU_prev_mask=torch.zeros(grid.shape, dtype=torch.bool,
-                                                device=dev),
-                    uvel=z, vvel=z, strairxT=z + 0.1, strairyT=z + 0.05,
-                    uocn_T=z, vocn_T=z, ss_tltx_T=z, ss_tlty_T=z)
-    p = evp_params(cfg.dynamics, dt)
-    strength = ice_strength(torch.stack([aice / 5] * 5),
-                            torch.stack([vice / 5] * 5), aice, vice,
-                            cfg.dynamics)
-    z3 = torch.zeros((4,) + grid.shape, device=dev)
-    args = (grid, p, prep, strength, z3, z3, z3)
-    ref = evp_solve(*args, uocn=z, vocn=z)
-    got = kevp.evp_solve_fused(*args, uocn=z, vocn=z)
+    args, kw = evp_problem(grid, cfg.dynamics, dt, dev)
+    p = args[1]
+    ref = evp_solve(*args, **kw)
+    got = kevp.evp_solve_fused(*args, **kw)
     torch.cuda.synchronize()
     scale = float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max())
-    err = float(torch.sqrt((got[0] - ref[0]) ** 2 +
-                           (got[1] - ref[1]) ** 2).max())
-    k1_rel = err / max(scale, 1e-30)
-    k1_abs = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    print(f"K1 evp: max |u,v| {scale:.4e} m/s, rel u/v error {k1_rel:.3e} "
-          f"(gate 1e-4), max abs error over outputs {k1_abs:.3e}")
-    if not (scale > 1e-3 and k1_rel <= 1e-4):
-        fail(f"K1 disagrees with evp_solve: rel error {k1_rel}")
-    k1_ms = timed_ms(lambda: kevp.evp_solve_fused(*args, uocn=z, vocn=z), 5)
-    k1_plain = timed_ms(lambda: evp_solve(*args, uocn=z, vocn=z), 2)
-    const = kevp.pack_const(grid, prep, strength, p.deltaminEVP * grid.tarea,
-                            z, z)
-    st0 = torch.cat([prep.uvel[None], prep.vvel[None], z3, z3, z3])
-    work = st0.clone()
-    k1_loop = timed_ms(lambda: kevp.evp_subcycles_cuda(
-        const, work.copy_(st0), p, grid.bc.x_cyclic), 5)
+    K1_OUT = ("uvel", "vvel", "stressp", "stressm", "stress12", "strintx",
+              "strinty", "taubx", "tauby")
+
+    def hold_k1(outs, route):
+        """Every output of a K1 solve against evp_solve: u/v within 1e-4 of
+        the largest speed, each output's max abs error within 1e-5 of that
+        output's max |ref|. Returns (rel u/v error, max abs error)."""
+        err = float(torch.sqrt((outs[0] - ref[0]) ** 2 +
+                               (outs[1] - ref[1]) ** 2).max())
+        rel = err / max(scale, 1e-30)
+        errs = {}
+        for nm, g, r in zip(K1_OUT, outs, ref):
+            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                fail(f"K1 route {route}: {nm} has the wrong shape or is not "
+                     "finite")
+            errs[nm] = (float((g - r).abs().max()), float(r.abs().max()))
+        worst = max(e for e, _ in errs.values())
+        print(f"K1 evp: route {route} against evp_solve: rel u/v error "
+              f"{rel:.3e} (gate 1e-4), max abs error over outputs "
+              f"{worst:.3e}; per output (error, max |ref|, gate 1e-5 of it): "
+              + ", ".join(f"{nm} {e:.1e} {sc:.3e}"
+                          for nm, (e, sc) in errs.items()))
+        if not (scale > 1e-3 and rel <= 1e-4):
+            fail(f"K1 route {route} disagrees with evp_solve: rel u/v error "
+                 f"{rel} at max |u,v| {scale}")
+        for nm, (e, sc) in errs.items():
+            if not e <= 1e-5 * sc:
+                fail(f"K1 route {route} disagrees with evp_solve on {nm}: "
+                     f"max abs error {e} at max |ref| {sc}")
+        return rel, worst
+
+    masked = float(torch.stack(args[4:7])[:, :, ~args[2].iceTmask.bool()]
+                   .abs().max())
+    for nm, r in zip(K1_OUT[2:7], ref[2:7]):
+        if not float(r.abs().max()) > 0:
+            fail(f"K1's inputs leave {nm} zero: nothing to hold it against")
+    if not masked > 0:
+        fail("K1's inputs carry no stress to mask where there is no ice")
+    print(f"K1 evp: max |u,v| {scale:.4e} m/s, incoming stresses up to "
+          f"{masked:.3e} N/m on cells without ice")
+    k1_rel, k1_abs = hold_k1(got, "persistent")
+    # the route the wrapper took at gx1, and the other one once
+    info = kevp.device_info(0)
+    route, tile = kevp.choose_route(ny, nx, info["sm_count"],
+                                    info["smem_per_block"],
+                                    info["blocks_per_sm"])
+    if route != "persistent" or kevp.persistent_launches != 1 or \
+            kevp.stream_launches != 0:
+        fail(f"K1 at gx1 must run the persistent route: chose {route}, "
+             f"counters persistent {kevp.persistent_launches}, stream "
+             f"{kevp.stream_launches}")
+    blocks = -(-ny // tile[0]) * -(-nx // tile[1])
+    print(f"K1 evp: route {route}, tile {tile[0]}x{tile[1]}, {blocks} "
+          f"blocks of {info['threads']} threads on {info['sm_count']} SMs, "
+          f"{kevp.persistent_smem_bytes(*tile)} B shared memory per block, "
+          f"{info['registers']} registers per thread")
+    def solve(ndte=p.ndte, **how):
+        return kevp.evp_solve_cuda(grid, p._replace(ndte=ndte), *args[2:],
+                                   **kw, **how)
+    got_s = solve(route="stream")
+    torch.cuda.synchronize()
+    _, k1s_abs = hold_k1(kevp.unpack_outputs(got_s), "stream")
+    k1_ms = timed_ms(lambda: kevp.evp_solve_fused(*args, **kw), 5)
+    k1_plain = timed_ms(lambda: evp_solve(*args, **kw), 2)
+    # the subcycles alone: a solve with twice as many, less a whole solve
+    k1_kernel = timed_ms(lambda: solve(), 5)
+    k1_loop = timed_ms(lambda: solve(ndte=2 * p.ndte), 5) - k1_kernel
+    k1_stream = timed_ms(lambda: solve(route="stream"), 5)
+    k1_stream_loop = timed_ms(
+        lambda: solve(route="stream", ndte=2 * p.ndte), 5) - k1_stream
     nb, nf = kevp.bound_bytes_flops(ny, nx, p.ndte)
     k1_bound, k1_by = bound_ms(nb, nf)
-    stream_ms = (4 * (26 + 14 + 14) * ny * nx * p.ndte /
-                 HBM_BYTES_PER_S * 1e3)
-    print(f"K1 evp: kernel {k1_ms:.3f} ms per solve with packing and the "
-          f"PyTorch tail, {k1_loop:.3f} ms for the {2 * p.ndte} subcycle "
-          f"launches alone; plain {k1_plain:.3f} ms (ndte={p.ndte}); bound "
-          f"{k1_bound:.4f} ms by {k1_by} ({nf / 1e9:.2f} GFLOP at 67 "
-          f"TFLOP/s f32); streaming all 54 planes from HBM every subcycle "
-          f"would take {stream_ms:.3f} ms")
+    print(f"K1 evp: persistent {k1_ms:.3f} ms per evp_solve_fused, "
+          f"{k1_loop:.3f} ms of it the {p.ndte} subcycles "
+          f"({1e3 * k1_loop / p.ndte:.2f} us each, one barrier each); "
+          f"stream {k1_stream:.3f} ms per solve, {k1_stream_loop:.3f} ms "
+          f"its {2 * p.ndte} subcycle launches; plain "
+          f"{k1_plain:.3f} ms (ndte={p.ndte}); bound {k1_bound:.4f} ms by "
+          f"{k1_by} ({nf / 1e9:.2f} GFLOP at 67 TFLOP/s f32, which counts "
+          f"a fused multiply-add as two)")
 
     # ---- K2: fused transport vs the plain path on the moving ice --------
     st, _ = step_dyn_horiz(m.static, grid, m.state, m.forcing,
@@ -228,12 +251,25 @@ def main() -> int:
         fail("K2 disagrees with the plain transport path")
     k2_ms = timed_ms(lambda: kremap.transport_fused(*kargs), 10)
     k2_plain = timed_ms(lambda: kremap.transport_plain(*kargs), 3)
-    nb2, nf2 = kremap.bound_bytes_flops(table, am.shape[0] - 1, ny, nx)
+    # the kernel leaves out donor candidates with no moment at all and the
+    # reconstructions nobody then reads: the bound counts this run's work
+    k2_active, k2_needed = kremap.work_fractions(grid, mom_n, mom_e)
+    nb2, nf2 = kremap.bound_bytes_flops(table, am.shape[0] - 1, ny, nx,
+                                        k2_active, k2_needed)
     k2_bound, k2_by = bound_ms(nb2, nf2)
+    _, nf2_all = kremap.bound_bytes_flops(table, am.shape[0] - 1, ny, nx)
+    k2i = kremap.kernel_info(table)
     print(f"K2 transport: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} ms "
-          f"per call (NT={len(table)}, tile {kremap.pick_tile(len(table))});"
-          f" bound {k2_bound:.4f} ms by {k2_by} ({nb2 / 1e6:.1f} MB, "
-          f"{nf2 / 1e9:.2f} GFLOP)")
+          f"per call (NT={len(table)} in {k2i['chunks']} chunks of up to "
+          f"{k2i['chunk']} reconstructions, tile {k2i['tile'][0]}x"
+          f"{k2i['tile'][1]}, {k2i['threads']} threads, {k2i['smem']} B "
+          f"shared memory per block, {k2i['registers']} registers per "
+          f"thread, {k2i['blocks_per_sm']} block(s) per SM); this run's "
+          f"moments leave {k2_active:.3f} of 6 donor candidates per edge "
+          f"and {100 * k2_needed:.1f}% of the cells' reconstructions to "
+          f"do; bound {k2_bound:.4f} ms by {k2_by} ({nb2 / 1e6:.1f} MB, "
+          f"{nf2 / 1e9:.2f} GFLOP; with every candidate "
+          f"{nf2_all / 1e9:.2f} GFLOP)")
 
     # ---- K3: flux-only kernel vs its plain version, same moving ice -----
     mc, mx, my, tc, tx, ty, tstack = rx.construct_fields(grid, am, trm,
@@ -267,8 +303,13 @@ def main() -> int:
 
     def reset_counters():
         kevp.launches = kremap.launches = kremap.flux_launches = 0
+        kevp.persistent_launches = kevp.stream_launches = 0
 
     def read_counters():
+        if kevp.persistent_launches != kevp.launches or kevp.stream_launches:
+            fail(f"K1 left the persistent route at gx1: {kevp.launches} "
+                 f"solves, {kevp.persistent_launches} persistent, "
+                 f"{kevp.stream_launches} stream")
         return {"evp_fused": kevp.launches,
                 "transport_fused": kremap.launches,
                 "tracer_fluxes": kremap.flux_launches}
@@ -342,7 +383,7 @@ def main() -> int:
         abs(rec["bud_dM"]), abs(rec["bud_water_in"]), 1.0)
     cs = {k: float(v) for k, v in check_state(s).items()}
     print(f"main path: {steps} coupled steps in {wall:.3f} s (host clock, "
-          f"kernels built, diagnostics on the last step) on {smi[0]}, "
+          f"kernels built, diagnostics on the last step) on {smi}, "
           f"launches {launches}, checks {tc}, finite {finite}, "
           f"check_state {cs}, freshwater residual / budget {wres:.3e}, "
           f"aice max {rec['aice_max']:.4f}, hmax {rec['hmax']:.3f} m")
@@ -391,7 +432,7 @@ def main() -> int:
     tr3_ms = timed_ms(lambda: rx.horizontal_remap_exact(
         grid, main.state, main.static.registry, fc.Tf, dt,
         l_dp_midpt=True, flux_kernel="fused_pallas"), 5)
-    print(f"phases at gx1pop (320x384, ndte=120, NT=25, f32) on {smi[0]}: "
+    print(f"phases at gx1pop (320x384, ndte=120, NT=25, f32) on {smi}: "
           f"dyn {dyn_ms:.3f} ms (K1 bound {k1_bound:.4f} ms), transport "
           f"through K2 {tr_ms:.3f} ms (K2 bound {k2_bound:.4f} ms), "
           f"transport through K3 {tr3_ms:.3f} ms (K3 bound {k3_bound:.4f} "
@@ -403,7 +444,7 @@ def main() -> int:
     main.run(psteps, timer=timer)
     phase_ms = {k: v / psteps for k, v in timer.totals().items()}
     step_ms = (time.perf_counter() - t0) * 1e3 / psteps
-    print(f"coupled step on {smi[0]}: {step_ms:.3f} ms per step (host "
+    print(f"coupled step on {smi}: {step_ms:.3f} ms per step (host "
           f"clock, {psteps} steps, no diagnostics), phases by CUDA events "
           "(ms per step): " + ", ".join(f"{k} {v:.3f}"
                                         for k, v in phase_ms.items()))
@@ -440,10 +481,17 @@ def main() -> int:
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(out, gpu=smi[0], dyn_ms=dyn_ms, transport_ms=tr_ms,
+        json.dump(dict(out, gpu=smi, dyn_ms=dyn_ms, transport_ms=tr_ms,
                        transport_k3_ms=tr3_ms, main_path_s=wall,
                        step_ms=step_ms, phase_ms=phase_ms,
                        k1_rel_err=k1_rel, k1_subcycles_ms=k1_loop,
+                       k1_kernel_ms=k1_kernel, k1_stream_ms=k1_stream,
+                       k1_stream_subcycles_ms=k1_stream_loop,
+                       k1_stream_max_abs_err=k1s_abs,
+                       k1_tile=tile, k1_blocks=blocks,
+                       k1_registers=info["registers"], k2_info=k2i,
+                       k2_active_candidates=k2_active,
+                       k2_needed_cells=k2_needed,
                        launches={"main": launches, "auto": auto_launches,
                                  "dyn": dyn_launches},
                        freshwater_residual=wres, ridge_passes=rdg["npass"],

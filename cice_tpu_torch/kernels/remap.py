@@ -22,7 +22,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.grid import Grid
@@ -36,24 +38,143 @@ launches = 0
 flux_launches = 0
 
 # thread-block tiles (x, y) in order of preference: the first whose shared
-# memory fits takes it (smaller tiles let larger tracer tables fit)
-TILES = ((32, 4), (32, 2), (32, 1), (16, 1), (8, 1))
+# memory fits takes it (smaller tiles leave room for more kept values)
+TILES = ((32, 8), (32, 4), (32, 2), (32, 1), (16, 1), (8, 1))
 MAX_SMEM = 232448          # bytes a block may use on sm_90
+#: reconstructions one chunk of the schedule may hold
+CHUNK = 16
 
 
-def smem_bytes(tx: int, ty: int, NT: int) -> int:
-    """Shared memory of one block: 6 mass + 3*NT tracer reconstruction
-    planes on the (tx+2) x (ty+2) ring tile, NT divergence slots per
-    thread (mirrors transport_smem_bytes in the CUDA source)."""
-    return 4 * ((6 + 3 * NT) * (tx + 2) * (ty + 2) + NT * tx * ty)
+def block_threads(tx: int, ty: int) -> int:
+    """Threads of one block: one per edge the (tx, ty) tile owns, ty x
+    (tx+1) east edges and (ty+1) x tx north edges, each family padded to
+    whole warps (mirrors transport_threads in the CUDA source)."""
+    pad = lambda n: (n + 31) // 32 * 32
+    return pad(ty * (tx + 1)) + pad((ty + 1) * tx)
 
 
-def pick_tile(NT: int):
+class Layout(NamedTuple):
+    """Where the parts of a packed schedule lie in its int array, and the
+    sizes the kernel's shared memory follows (the 8 ints of `Sched` in the
+    CUDA source): n ints in all; the offsets of the owned-slot lists, the
+    chunk records, the tracer records and the rails; nch chunks of at most
+    `chunk` reconstructions; nslots kept values per cell."""
+    n: int
+    o_upd: int
+    o_chk: int
+    o_trc: int
+    o_lohi: int
+    nch: int
+    chunk: int
+    nslots: int
+
+
+def smem_bytes(tx: int, ty: int, layout: Layout) -> int:
+    """Shared memory of one block for the packed schedule `layout`
+    describes: its n ints, 6 mass planes, a chunk's 3 x chunk
+    reconstruction planes and two int lists on the (tx+2) x (ty+2) ring
+    tile, `chunk` fluxes per edge thread, and nslots kept values plus 3
+    mass values per cell. Mirrors transport_smem_bytes in the CUDA
+    source."""
+    R = (tx + 2) * (ty + 2)
+    return 4 * (layout.n + (6 + 3 * layout.chunk) * R
+                + layout.chunk * block_threads(tx, ty)
+                + (layout.nslots + 3) * tx * ty + 2 * R)
+
+
+def pick_tile(layout: Layout):
+    """The first tile of TILES whose block fits shared memory."""
     for tx, ty in TILES:
-        if smem_bytes(tx, ty, NT) <= MAX_SMEM:
+        if smem_bytes(tx, ty, layout) <= MAX_SMEM:
             return tx, ty
-    raise ValueError(f"fused transport kernel: {NT} tracers exceed the "
-                     "shared memory of the smallest tile")
+    raise ValueError("fused transport kernel: a schedule of "
+                     f"{layout.n} ints with {layout.nslots} kept values "
+                     "exceeds the shared memory of the smallest tile")
+
+
+class Schedule(NamedTuple):
+    """Chunks of the flat table for the one-pass kernel. Chunk k holds the
+    entries ch_start[k]:ch_start[k+1]; entry e reconstructs tracer
+    ent_tr[e]; the first ch_nw1[k] entries of a chunk are of type 1 or 3,
+    the rest of type 2; ent_own[e] is 1 where the chunk also fluxes and
+    updates the tracer (0: an ancestor held for its dependents); ent_p /
+    ent_g are the positions in the chunk of its parent's and grandparent's
+    reconstructions (-1: none); vslot[n] numbers the tracers with
+    dependents (-1: none), nslots of them; chunk is the largest chunk."""
+    ch_start: tuple
+    ch_nw1: tuple
+    ent_tr: tuple
+    ent_own: tuple
+    ent_p: tuple
+    ent_g: tuple
+    vslot: tuple
+    nslots: int
+    chunk: int
+
+
+def build_schedule(table, budget: int = CHUNK) -> Schedule:
+    """Cut the flat table into chunks of at most `budget` reconstructions
+    that follow its dependency chains: tracers are taken family by family
+    (a type-1 tracer, then each child followed by its own children), so a
+    tracer is fluxed and updated in the chunk of its parent or a later one,
+    exactly once; a chunk also reconstructs the parents and grandparents
+    its tracers need and does not own."""
+    NT = len(table)
+    if budget < 3:
+        raise ValueError("a chunk must hold a tracer, its parent and its "
+                         "grandparent")
+    par = [f.parent for f in table]
+    kids = [[k for k in range(NT) if par[k] == n] for n in range(NT)]
+    order: list = []
+
+    def visit(n):
+        order.append(n)
+        for k in kids[n]:
+            visit(k)
+    for n in range(NT):
+        if par[n] < 0:
+            visit(n)
+
+    def ancestors(n):
+        out = []
+        while par[n] >= 0 and len(out) < 2:
+            n = par[n]
+            out.append(n)
+        return out
+
+    chunks, own, ent = [], [], []
+    for n in order:
+        need = [a for a in ancestors(n) if a not in ent] + [n]
+        if len(ent) + len(need) > budget:
+            chunks.append((own, ent))
+            own, ent = [], []
+            need = ancestors(n) + [n]
+        ent += need
+        own.append(n)
+    if own:
+        chunks.append((own, ent))
+
+    ch_start, ch_nw1 = [0], []
+    ent_tr, ent_own, ent_p, ent_g = [], [], [], []
+    for own, ent in chunks:
+        ent = sorted(ent, key=lambda n: (table[n].ttype == 2, n))
+        slot = {n: k for k, n in enumerate(ent)}
+        ch_nw1.append(sum(table[n].ttype != 2 for n in ent))
+        for n in ent:
+            anc = ancestors(n)
+            ent_tr.append(n)
+            ent_own.append(int(n in own))
+            ent_p.append(slot[anc[0]] if anc else -1)
+            ent_g.append(slot[anc[1]] if len(anc) > 1 else -1)
+        ch_start.append(len(ent_tr))
+    vslot, nslots = [], 0
+    for f in table:
+        vslot.append(nslots if f.has_dependents else -1)
+        nslots += int(f.has_dependents)
+    chunk = max(2, max(b - a for a, b in zip(ch_start, ch_start[1:])))
+    return Schedule(*(tuple(v) for v in (ch_start, ch_nw1, ent_tr, ent_own,
+                                         ent_p, ent_g, vslot)),
+                    nslots, chunk)
 
 
 def transport_plain(grid: Grid, mom_n, mom_e, am, trm, table):
@@ -75,23 +196,97 @@ def _table_tensors(table, device):
             f32(ta.hi))
 
 
+class PackedSchedule(NamedTuple):
+    """The schedule and the flat table as the kernel reads them: one int32
+    array `data` and its `layout`. data[0:4*nent] holds per entry (tracer, own | type << 1,
+    parent's slot, grandparent's slot); from o_upd per chunk the slots of
+    the entries it owns, sorted by chain type; from o_chk 8 ints per chunk
+    (first entry, entries, entries of type 1 or 3, the 4 bounds of its
+    types 1, 2, 3 in the list of owned slots, 0); from o_trc 4 ints per
+    tracer (type, parent, grandparent, value slot); from o_lohi the lo and
+    hi rails of each tracer as float32 bits."""
+    data: np.ndarray
+    layout: Layout
+
+
+def pack_schedule(table, sch: Schedule) -> PackedSchedule:
+    ta = _TableArrays(table)
+    NT, nch = len(table), len(sch.ch_nw1)
+    ent = [(n, own | table[n].ttype << 1, p, g) for n, own, p, g in
+           zip(sch.ent_tr, sch.ent_own, sch.ent_p, sch.ent_g)]
+    upd, chk = [], []
+    for k in range(nch):
+        e0, e1 = sch.ch_start[k], sch.ch_start[k + 1]
+        bounds = [len(upd)]
+        for tt in (1, 2, 3):
+            upd += [s for s in range(e1 - e0) if sch.ent_own[e0 + s]
+                    and table[sch.ent_tr[e0 + s]].ttype == tt]
+            bounds.append(len(upd))
+        chk.append((e0, e1 - e0, sch.ch_nw1[k], *bounds, 0))
+    pad4 = lambda n: (n + 3) // 4 * 4
+    o_upd = 4 * len(ent)
+    o_chk = o_upd + pad4(len(upd))
+    o_trc = o_chk + 8 * nch
+    o_lohi = o_trc + 4 * NT
+    n = pad4(o_lohi + 2 * NT)
+    data = np.zeros(n, np.int32)
+    data[:o_upd] = np.asarray(ent, np.int32).ravel()
+    data[o_upd:o_upd + len(upd)] = upd
+    data[o_chk:o_trc] = np.asarray(chk, np.int32).ravel()
+    data[o_trc:o_lohi] = np.stack(
+        [ta.ttype, np.where(ta.has_p, ta.par, -1),
+         np.where(ta.has_g, ta.gpar, -1), sch.vslot], axis=1).ravel()
+    data[o_lohi:o_lohi + 2 * NT] = np.stack(
+        [ta.lo, ta.hi], axis=1).astype(np.float32).ravel().view(np.int32)
+    return PackedSchedule(data, Layout(n, o_upd, o_chk, o_trc, o_lohi, nch,
+                                       sch.chunk, sch.nslots))
+
+
+@functools.lru_cache(maxsize=16)
+def _schedule_tensors(table, device, budget: int = CHUNK):
+    """(layout, the packed schedule's int array on the device)."""
+    packed = pack_schedule(table, build_schedule(table, budget))
+    return packed.layout, torch.as_tensor(packed.data, device=device)
+
+
 def _lib():
     lib = load("transport_fused")
-    lib.transport_fused.argtypes = [ctypes.c_void_p] * 15 + \
+    lib.transport_fused.argtypes = [ctypes.c_void_p] * 9 + \
+        [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 2 + \
         [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.transport_fused.restype = ctypes.c_int
+    lib.transport_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_long,
+                                   ctypes.POINTER(ctypes.c_int)]
+    lib.transport_info.restype = ctypes.c_int
     return lib
 
 
-def transport_fused(grid: Grid, mom_n, mom_e, am, trm, table):
-    """One-pass transport; returns (am_pre, trm_new)."""
+def kernel_info(table, *, tile=None, budget: int = CHUNK) -> dict:
+    """Tile, threads, shared memory and (from the CUDA runtime) registers
+    per thread and resident blocks per SM of the one-pass kernel for this
+    table, on the current CUDA device. tile, budget: as `transport_cuda`."""
+    layout = pack_schedule(table, build_schedule(table, budget)).layout
+    tx, ty = tile or pick_tile(layout)
+    smem = smem_bytes(tx, ty, layout)
+    info = (ctypes.c_int * 4)()
+    check(_lib().transport_info(tx, ty, smem, info), "transport_info")
+    return dict(tile=(tx, ty), threads=block_threads(tx, ty), smem=smem,
+                chunks=layout.nch, chunk=layout.chunk, registers=info[0],
+                blocks_per_sm=info[3])
+
+
+def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
+                   budget: int = CHUNK):
+    """The one-pass transport in CUDA; returns (am_pre, trm_new).
+
+    tile, budget: None / CHUNK let `pick_tile` choose the tile for chunks
+    of at most CHUNK reconstructions; a test or a measurement may name
+    another tile of TILES or another chunk size."""
     global launches
-    if trm.device.type == "cpu":
-        return transport_plain(grid, mom_n, mom_e, am, trm, table)
     if grid.bc.tripole or grid.bc.y_cyclic:
         raise NotImplementedError(
             "fused transport kernel: tripole/y-cyclic boundaries are not "
-            "ported yet (ROADMAP: tripole and y-cyclic boundaries)")
+            "ported yet (ROADMAP A3: tripole and y-cyclic boundaries)")
     ncat, NT, ny, nx = trm.shape
     if NT != len(table):
         raise ValueError(f"trm has {NT} tracers, the table {len(table)}")
@@ -116,19 +311,30 @@ def transport_fused(grid: Grid, mom_n, mom_e, am, trm, table):
     afe = f32(grid.earea * grid.epm)
     tarear = f32(grid.tarear)
     hm = f32(grid.hm)
-    ttype, par, gpar, lo, hi = _table_tensors(table, trm.device)
-    tx, ty = pick_tile(NT)
+    layout, sched = _schedule_tensors(table, trm.device, budget)
+    tx, ty = tile or pick_tile(layout)
+    if (tx, ty) not in TILES or smem_bytes(tx, ty, layout) > MAX_SMEM:
+        raise ValueError(f"fused transport kernel: tile {(tx, ty)} is not "
+                         "one of TILES or does not fit shared memory")
     trm_new = torch.empty_like(trm)
     am_pre = torch.empty_like(am)
     stream = torch.cuda.current_stream(trm.device).cuda_stream
     ptrs = [t.data_ptr() for t in (trm, am, mom_n, mom_e, afn, afe, tarear,
-                                   hm, ttype, par, gpar, lo, hi, trm_new,
-                                   am_pre)]
-    err = _lib().transport_fused(*ptrs, ncat, NT, ny, nx,
-                                 int(grid.bc.x_cyclic), tx, ty, stream)
+                                   hm, sched)]
+    err = _lib().transport_fused(
+        *ptrs, (ctypes.c_int * 8)(*layout), trm_new.data_ptr(),
+        am_pre.data_ptr(), ncat, NT, ny, nx, int(grid.bc.x_cyclic), tx, ty,
+        stream)
     check(err, "transport_fused")
     launches += 1
     return am_pre, trm_new
+
+
+def transport_fused(grid: Grid, mom_n, mom_e, am, trm, table):
+    """One-pass transport; returns (am_pre, trm_new)."""
+    if trm.device.type == "cpu":
+        return transport_plain(grid, mom_n, mom_e, am, trm, table)
+    return transport_cuda(grid, mom_n, mom_e, am, trm, table)
 
 
 def tracer_fluxes_plain(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
@@ -211,12 +417,39 @@ def tracer_fluxes_fused(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
 _CHAIN_FLOPS = {1: 6, 2: 21, 3: 22}
 
 
-def _edge_flops(table, ncat: int) -> int:
-    """Flops of one edge of one cell over all categories: per candidate the
-    six moment sums (30) and the mass sum, per tracer its 6 candidate terms
-    and the scaling by the edge area; the open-water row once."""
-    return ncat * (6 * 31 + sum(6 * _CHAIN_FLOPS[f.ttype] + 2
-                                for f in table)) + 6 * 6
+def _edge_flops(table, ncat: int, cands: float = 6.0) -> float:
+    """Flops of one edge of one cell over all categories with `cands`
+    donor candidates that count: per candidate the six moment sums (30) and
+    the mass sum, per tracer its candidate terms and the scaling by the
+    edge area; the open-water row once."""
+    return ncat * (cands * 31 + sum(cands * _CHAIN_FLOPS[f.ttype] + 2
+                                    for f in table)) + cands * 6
+
+
+def work_fractions(grid: Grid, mom_n, mom_e):
+    """(active, needed): what the one-pass kernel's work depends on in the
+    data. `active` is the mean number of donor candidates per edge with a
+    nonzero moment (of 6; the others add exact zeros and are left out);
+    `needed` is the share of cells that donate through such a candidate,
+    the only ones whose tracer reconstruction is read.
+
+    On finite fields leaving these out changes no bit. A non-finite tracer
+    in a cell that donates nothing stays in that cell in the kernel (its
+    update keeps a NaN through the clip to the rails), while the plain
+    version multiplies it by the zero moments and hands NaN to the
+    neighbours; the cell itself is non-finite in both, so `check_state`
+    flags such a state on either path."""
+    from ..core.halo import shift
+    from ..dynamics.remap_exact import OFFS_E, OFFS_N
+    ny, nx = mom_n.shape[-2:]
+    need = torch.zeros((ny, nx), dtype=torch.bool, device=mom_n.device)
+    nact = 0.0
+    for mom, offs in ((mom_n, OFFS_N), (mom_e, OFFS_E)):
+        act = (mom != 0).any(dim=1)
+        nact += float(act.sum())
+        for ci, (dj, di) in enumerate(offs):
+            need |= shift(act[ci].to(mom.dtype), -dj, -di, bc=grid.bc) > 0
+    return nact / (2 * ny * nx), float(need.sum()) / (ny * nx)
 
 
 def tracer_fluxes_bound_bytes_flops(table, ncat: int, ny: int, nx: int):
@@ -233,20 +466,24 @@ def tracer_fluxes_bound_bytes_flops(table, ncat: int, ny: int, nx: int):
     return nbytes, P * 2 * _edge_flops(table, ncat)
 
 
-def bound_bytes_flops(table, ncat: int, ny: int, nx: int):
+def bound_bytes_flops(table, ncat: int, ny: int, nx: int,
+                      active: float = 6.0, needed: float = 1.0):
     """(bytes, flops) one transport pass must move and do, counted from
     csrc/transport_fused.cu (a sqrt, divide, min or max counts as one).
     Bytes: trm, am, the 120 moment planes and 4 grid planes read once;
-    trm_new and am_pre written once. Flops: each cell's reconstruction
+    trm_new and am_pre written once. Flops: each cell's mass
+    reconstruction and, for the `needed` share of cells, its tracers'
     (limited gradient ~94 per field; type-2 tracers ~43 more for their
-    centroid and mask), the fluxes across 2 edges per cell (6 candidates,
-    per tracer 6 / 21 / 22 for chain types 1 / 2 / 3) and the update."""
+    centroid and mask), the fluxes across 2 edges per cell (`active`
+    candidates of 6, per tracer 6 / 21 / 22 for chain types 1 / 2 / 3) and
+    the update. `active` and `needed` come from `work_fractions`; the
+    defaults count every candidate and every cell."""
     NT = len(table)
     P = ny * nx
     nbytes = 4 * P * (2 * ncat * NT + 2 * (ncat + 1) + 120 + 4)
     lim = 94
     ttypes = [f.ttype for f in table]
-    recon = (ncat + 1) * (lim + 7) + ncat * sum(
+    recon = (ncat + 1) * (lim + 7) + needed * ncat * sum(
         {1: lim + 4, 2: lim + 43, 3: 0}[t] for t in ttypes)
     update = ncat * (NT * 11 + 6) + 3
-    return nbytes, P * (recon + 2 * _edge_flops(table, ncat) + update)
+    return nbytes, P * (recon + 2 * _edge_flops(table, ncat, active) + update)

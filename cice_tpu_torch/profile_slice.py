@@ -17,7 +17,6 @@ of one stream never overlap). Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
 
@@ -36,13 +35,11 @@ def main(argv=None) -> int:
 
     from . import config as C
     from .kernels import _build
+    from .measure import gpu_name_and_power_limit
     from .model.driver import Model
 
     _build.build()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
+    print(gpu_name_and_power_limit())
     if args.path == "dyn":
         m = Model(C.gx1pop_dyn(), device="cuda")
         run = m.run_dynamics
@@ -64,8 +61,8 @@ def main(argv=None) -> int:
                and e.self_device_time_total > 0]
     us = lambda e: e.self_device_time_total
     total = sum(us(e) for e in kernels)
-    k1 = sum(us(e) for e in kernels if "evp_stress_kernel" in e.key
-             or "evp_stepu_kernel" in e.key)
+    k1 = sum(us(e) for e in kernels if "evp_persistent_kernel" in e.key
+             or "evp_stream_" in e.key)
     k2 = sum(us(e) for e in kernels if "transport_kernel" in e.key)
     k3 = sum(us(e) for e in kernels if "tracer_fluxes_kernel" in e.key)
     per = args.steps * 1e3

@@ -66,15 +66,157 @@ def test_evp_kernel_matches_plain(cuda, ew):
                             m.cfg.dynamics)
     z3 = torch.zeros((4,) + g.shape, device=cuda)
     args = (g, p, prep, strength, z3, z3, z3)
-    before = kevp.launches
+    before = kevp.launches, kevp.persistent_launches
     got = kevp.evp_solve_fused(*args, uocn=z + 0.02, vocn=z)
     ref = evp_solve(*args, uocn=z + 0.02, vocn=z)
     torch.cuda.synchronize()
-    assert kevp.launches == before + 1
+    assert (kevp.launches, kevp.persistent_launches) == \
+        (before[0] + 1, before[1] + 1)      # 40x48 fits the card
     scale = float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max())
     err = float(torch.sqrt((got[0] - ref[0]) ** 2 +
                            (got[1] - ref[1]) ** 2).max())
     assert scale > 1e-3 and err / scale < 1e-4
+
+
+def _evp_problem(cuda, ny, nx, ew, ndte, seed=0):
+    """EVP inputs with moving ice, nonzero incoming stresses, an ice-free
+    band, seabed stress and an ocean current, made with numpy from a seed."""
+    from cice_tpu_torch.core.grid import rectgrid
+    from cice_tpu_torch.core.halo import BC
+    cfg = tconfig.Config().with_overrides(**{
+        "grid.nx_global": nx, "grid.ny_global": ny,
+        "grid.ew_boundary_type": ew, "dynamics.ndte": ndte,
+        "dynamics.coriolis": "latitude", "dynamics.seabed_stress": True,
+        "dynamics.threshold_hw": 5e3})
+    g = rectgrid(nx, ny, kmt_type="default", bc=BC(ew, "open"), device=cuda)
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    jj, ii = np.mgrid[0:ny, 0:nx]
+    tm = g.hm.cpu().numpy()
+    aice = (0.9 - 0.3 * np.exp(-((ii - nx / 2) / 6.0) ** 2)) * tm
+    aice[: ny // 5] = 0.0
+    vice = aice * (1.0 + 0.4 * rng.random((ny, nx)))
+    uo = 0.1 * np.cos(2 * np.pi * jj / ny)
+    vo = 0.05 * np.sin(2 * np.pi * ii / nx)
+    prep = dyn_prep(
+        g, cfg.dynamics, 3600.0, aice=T(aice), vice=T(vice),
+        vsno=T(aice * 0.1 * rng.random((ny, nx))),
+        aiceU_prev_mask=torch.as_tensor(rng.random((ny, nx)) > 0.3,
+                                        device=cuda),
+        uvel=T(0.05 * rng.standard_normal((ny, nx))),
+        vvel=T(0.05 * rng.standard_normal((ny, nx))),
+        strairxT=T(0.12 * np.sin(2 * np.pi * jj / ny) + 0.06),
+        strairyT=T(0.08 * np.cos(2 * np.pi * ii / nx)),
+        uocn_T=T(uo), vocn_T=T(vo), ss_tltx_T=T(0 * aice),
+        ss_tlty_T=T(0 * aice))
+    p = evp_params(cfg.dynamics, 3600.0)
+    strength = T(2.75e4 * vice * np.exp(-20.0 * (1.0 - aice)))
+    sp, sm, s12 = (T(1e3 * rng.standard_normal((4, ny, nx)))
+                   for _ in range(3))
+    return (g, p, prep, strength, sp, sm, s12), dict(uocn=T(uo), vocn=T(vo))
+
+
+EVP_OUT = ("uvel", "vvel", "stressp", "stressm", "stress12", "strintx",
+           "strinty", "taubx", "tauby")
+
+
+_unpack = kevp.unpack_outputs
+
+
+@pytest.mark.parametrize("ndte", [1, 39, 40])
+@pytest.mark.parametrize("route,tile", [
+    ("persistent", None),          # the chooser's tile
+    ("persistent", (8, 10)),       # many ragged tiles
+    ("persistent", (7, 9)),        # 29 rows: a tile row of one cell
+    ("persistent", (16, 48)),      # one tile column, wrapped on itself
+    ("persistent", (2, 3)),        # tiles that are all perimeter
+    ("stream", None)])
+@pytest.mark.parametrize("ny,nx,ew", [(40, 48, "cyclic"), (29, 37, "open"),
+                                      (29, 37, "cyclic")])
+def test_evp_routes_match_plain_exactly(cuda, ny, nx, ew, route, tile, ndte):
+    """Both routes repeat the plain version's arithmetic (-fmad=false): all
+    nine outputs are equal bit for bit, for odd and even ndte and ndte=1."""
+    if tile == (2, 3) and ny * nx > 132 * 6:
+        tile = (ny // 8 + 1, nx // 8 + 1)      # at most 64 resident blocks
+    args, kw = _evp_problem(cuda, ny, nx, ew, ndte)
+    if route == "persistent" and tile is None:
+        info = kevp.device_info(0)
+        r, tile = kevp.choose_route(ny, nx, info["sm_count"],
+                                    info["smem_per_block"],
+                                    info["blocks_per_sm"])
+        assert r == "persistent"
+    ref = evp_solve(*args, **kw)
+    before = kevp.persistent_launches, kevp.stream_launches
+    got = _unpack(kevp.evp_solve_cuda(*args, **kw, route=route, tile=tile))
+    torch.cuda.synchronize()
+    assert (kevp.persistent_launches - before[0],
+            kevp.stream_launches - before[1]) == \
+        ((1, 0) if route == "persistent" else (0, 1))
+    assert float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max()) > 1e-3
+    for name, a, r in zip(EVP_OUT, got, ref):
+        assert float((a - r).abs().max()) == 0.0, name
+
+
+@pytest.mark.parametrize("name,ny,nx", [("gx3", 116, 100),
+                                        ("tx1", 240, 360)])
+def test_evp_chooser_tiles_at_production_sizes(cuda, name, ny, nx):
+    """The wrapper's own route and tile on grids of the gx3 and tx1 sizes:
+    persistent, and equal to the plain version bit for bit."""
+    args, kw = _evp_problem(cuda, ny, nx, "cyclic", 3)
+    before = kevp.persistent_launches
+    got = kevp.evp_solve_fused(*args, **kw)
+    ref = evp_solve(*args, **kw)
+    torch.cuda.synchronize()
+    assert kevp.persistent_launches == before + 1, name
+    for out, a, r in zip(EVP_OUT, got, ref):
+        assert float((a - r).abs().max()) == 0.0, (name, out)
+
+
+def test_evp_solves_back_to_back(cuda):
+    """Two persistent solves in a row on one stream, then a third on other
+    inputs, with no synchronisation between: barrier and ring state of one
+    solve must not leak into the next."""
+    a1, k1 = _evp_problem(cuda, 40, 48, "cyclic", 40, seed=1)
+    a2, k2 = _evp_problem(cuda, 40, 48, "cyclic", 39, seed=2)
+    outs = [kevp.evp_solve_fused(*a1, **k1), kevp.evp_solve_fused(*a1, **k1),
+            kevp.evp_solve_fused(*a2, **k2), kevp.evp_solve_fused(*a1, **k1)]
+    torch.cuda.synchronize()
+    refs = [evp_solve(*a1, **k1), evp_solve(*a2, **k2)]
+    for got, ref in zip(outs, (refs[0], refs[0], refs[1], refs[0])):
+        for name, a, r in zip(EVP_OUT, got, ref):
+            assert float((a - r).abs().max()) == 0.0, name
+
+
+def test_evp_all_land_and_ice_free_tiles(cuda):
+    """Tiles with no ice at all still meet every barrier and write zeros."""
+    args, kw = _evp_problem(cuda, 40, 48, "cyclic", 5)
+    g, p, prep, strength, sp, sm, s12 = args
+    import dataclasses
+    keep = torch.zeros(g.shape, dtype=torch.bool, device=cuda)
+    keep[20:, 24:] = True                   # ice in one quadrant only
+    prep = dataclasses.replace(
+        prep, iceTmask=prep.iceTmask & keep, iceUmask=prep.iceUmask & keep,
+        uvel=prep.uvel * keep, vvel=prep.vvel * keep)
+    args = (g, p, prep, strength, sp, sm, s12)
+    ref = evp_solve(*args, **kw)
+    got = _unpack(kevp.evp_solve_cuda(*args, **kw, route="persistent",
+                                      tile=(10, 12)))
+    torch.cuda.synchronize()
+    assert float(ref[0][:20].abs().max()) == 0.0
+    for name, a, r in zip(EVP_OUT, got, ref):
+        assert float((a - r).abs().max()) == 0.0, name
+
+
+def test_evp_persistent_launch_that_does_not_fit_raises(cuda):
+    """More tiles than the card keeps resident: the cooperative launch is
+    refused and the wrapper raises; it never drops to the stream route."""
+    args, kw = _evp_problem(cuda, 40, 48, "cyclic", 2)
+    before = kevp.launches
+    with pytest.raises(RuntimeError):
+        kevp.evp_solve_cuda(*args, **kw, route="persistent", tile=(1, 1))
+    assert kevp.launches == before
+    with pytest.raises(ValueError):
+        kevp.evp_solve_cuda(*args, **kw, route="auto")
 
 
 @pytest.mark.parametrize("ew", ["cyclic", "open"])
@@ -165,8 +307,9 @@ def test_main_path_goes_through_both_kernels(cuda):
 
 @pytest.mark.parametrize("nlay", [30, 120])
 def test_transport_kernel_large_tables(cuda, nlay):
-    """Any NT: wide tracer tables pick smaller tiles (NT=35 keeps 32x4,
-    NT=125 drops to 32x1) and must still match the plain version."""
+    """Any NT: a wide tracer table runs in more chunks of the same size on
+    the same 32x8 tile (few of its tracers have dependents) and must still
+    match the plain version, on a grid ragged in both directions."""
     from cice_tpu_torch.model.state import DEP_AICE, DEP_VICE, TracerSpec
     reg = (TracerSpec("alvl", DEP_AICE, hi=1.0),
            TracerSpec("apnd", DEP_AICE, parent="alvl", hi=1.0),
@@ -174,7 +317,10 @@ def test_transport_kernel_large_tables(cuda, nlay):
            TracerSpec("wide", DEP_VICE, nlay, lo=-1.0, hi=1.0))
     table = rx.build_flat_table(reg)
     NT, ncat, ny, nx = len(table), 3, 37, 70
-    assert kremap.pick_tile(NT) == ((32, 4) if nlay == 30 else (32, 1))
+    sch = kremap.build_schedule(table)
+    assert kremap.pick_tile(kremap.pack_schedule(table, sch).layout) == \
+        (32, 8)
+    assert len(sch.ch_nw1) >= NT // kremap.CHUNK
     gen = torch.Generator(device="cpu").manual_seed(nlay)
     rnd = lambda *s: torch.rand(*s, generator=gen).to(cuda)
     from cice_tpu_torch.core.grid import rectgrid
@@ -195,3 +341,91 @@ def test_transport_kernel_large_tables(cuda, nlay):
         scale = float(r.abs().max()) or 1.0
         torch.testing.assert_close(got_trm[:, n], r, rtol=5e-4,
                                    atol=5e-5 * scale)
+
+
+def _transport_problem(cuda, table, ncat, ny, nx, seed):
+    from cice_tpu_torch.core.grid import rectgrid
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda *s: torch.rand(*s, generator=gen).to(cuda)
+    g = rectgrid(nx, ny, kmt_type="default", device=cuda)
+    NT = len(table)
+    aicen = 0.3 * rnd(ncat, ny, nx) * g.hm
+    am = torch.cat([1.0 - aicen.sum(0, keepdim=True), aicen]).contiguous()
+    trm = (2.0 * rnd(ncat, NT, ny, nx) - 0.5).contiguous()
+    u = 0.3 * g.dxU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0)
+    v = 0.3 * g.dyU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0)
+    dxs, dys, _ = rx.departure_points_scaled(g, u, v, 3600.0, True)
+    mom_n, mom_e = (t.contiguous() for t in rx.edge_moments(g, dxs, dys))
+    return g, mom_n, mom_e, am, trm, table
+
+
+@pytest.mark.parametrize("ny,nx", [(37, 70),      # ragged in y and x
+                                   (5, 20),       # narrower than one tile
+                                   (8, 32),       # exactly one tile
+                                   (9, 33)])      # one cell over
+def test_transport_kernel_ragged_grids_exact(cuda, ny, nx):
+    """The default 25-tracer table on grids that do not fill their tiles;
+    the kernel repeats the plain version's arithmetic, so the results are
+    equal bit for bit."""
+    table = rx.build_flat_table(Model(tconfig.gx1pop_dyn(48, 40),
+                                      device=cuda).static.registry)
+    args = _transport_problem(cuda, table, 3, ny, nx, seed=ny * nx)
+    before = kremap.launches
+    ref_am, ref_trm = kremap.transport_plain(*args)
+    got_am, got_trm = kremap.transport_fused(*args)
+    torch.cuda.synchronize()
+    assert kremap.launches == before + 1
+    assert float(ref_trm.abs().max()) > 0.1
+    assert float((got_am - ref_am).abs().max()) == 0.0
+    assert float((got_trm - ref_trm).abs().max()) == 0.0
+
+
+def test_transport_kernel_keeps_a_nan_where_nothing_moves(cuda):
+    """A NaN tracer in a cell that donates nothing (no moment on any edge
+    around it): the kernel leaves out the candidates without a moment, so
+    the NaN stays in its cell; the plain version multiplies it by those
+    zero moments and hands it to the neighbours. Wherever the plain version
+    stays finite the two still agree bit for bit, and the cell itself is
+    not finite in both, so `check_state` flags the state either way."""
+    table = rx.build_flat_table(Model(tconfig.gx1pop_dyn(48, 40),
+                                      device=cuda).static.registry)
+    ncat, ny, nx = 3, 20, 26
+    g, _, _, am, trm, _ = _transport_problem(cuda, table, ncat, ny, nx, 7)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    rnd = lambda *s: torch.rand(*s, generator=gen).to(cuda)
+    patch = torch.zeros(ny, nx, device=cuda)
+    patch[6:12, 8:16] = 1.0                # the ice moves only here
+    u = 0.3 * g.dxU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0) * patch
+    v = 0.3 * g.dyU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0) * patch
+    dxs, dys, _ = rx.departure_points_scaled(g, u, v, 3600.0, True)
+    mom_n, mom_e = (t.contiguous() for t in rx.edge_moments(g, dxs, dys))
+    active, needed = kremap.work_fractions(g, mom_n, mom_e)
+    assert 0.0 < active < 1.0 and 0.0 < needed < 0.5
+    n0 = next(n for n, f in enumerate(table)     # a tracer without children
+              if f.ttype == 1 and not f.has_dependents)
+    j0, i0 = 16, 3
+    assert float(g.hm[j0, i0]) == 1.0
+    trm = trm.clone()
+    trm[1, n0, j0, i0] = float("nan")
+    ref_am, ref_trm = kremap.transport_plain(g, mom_n, mom_e, am, trm, table)
+    got_am, got_trm = kremap.transport_fused(g, mom_n, mom_e, am, trm, table)
+    torch.cuda.synchronize()
+    bad_ref, bad_got = ~torch.isfinite(ref_trm), ~torch.isfinite(got_trm)
+    assert bool(bad_got[1, n0, j0, i0]) and bool(bad_ref[1, n0, j0, i0])
+    here = torch.zeros_like(bad_got)
+    here[1, n0, j0, i0] = True
+    assert not bool((bad_got & ~here).any())       # it stays in its cell
+    assert int(bad_ref.sum()) > int(bad_got.sum())  # the plain one spreads
+    assert not bool((bad_got & ~bad_ref).any())
+    assert torch.equal(got_trm[~bad_ref], ref_trm[~bad_ref])
+    assert bool(torch.isfinite(got_am).all())
+    assert torch.equal(got_am[torch.isfinite(ref_am)],
+                       ref_am[torch.isfinite(ref_am)])
+
+
+def test_transport_kernel_info(cuda):
+    table = rx.build_flat_table(Model(tconfig.gx1pop_dyn(48, 40),
+                                      device=cuda).static.registry)
+    info = kremap.kernel_info(table)
+    assert info["tile"] == (32, 8) and info["threads"] == 576
+    assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 112

@@ -224,12 +224,21 @@ def test_fused_wrapper_cpu_matches_jax_pallas_interpret():
 
 
 def test_pick_tile_fits_shared_memory():
-    assert tkremap.pick_tile(25) == (32, 4)
-    for NT in (1, 25, 100, 300):
-        tx, ty = tkremap.pick_tile(NT)
-        assert tkremap.smem_bytes(tx, ty, NT) <= tkremap.MAX_SMEM
+    """The tile follows the layout the wrapper passes to the kernel: the
+    default table's, and layouts with ever more kept values per cell."""
+    table = trx.build_flat_table(treg(tconfig.Config()))
+    layout = tkremap.pack_schedule(table,
+                                   tkremap.build_schedule(table)).layout
+    assert len(table) == 25 and tkremap.pick_tile(layout) == (32, 8)
+    tiles = []
+    for nslots in (1, 25, 100, 300, 1000):
+        lay = layout._replace(n=27 * nslots + 8, nslots=nslots)
+        tx, ty = tkremap.pick_tile(lay)
+        assert tkremap.smem_bytes(tx, ty, lay) <= tkremap.MAX_SMEM
+        tiles.append(tx * ty)
+    assert tiles == sorted(tiles, reverse=True) and tiles[-1] < tiles[0]
     with pytest.raises(ValueError):
-        tkremap.pick_tile(5000)
+        tkremap.pick_tile(layout._replace(n=27 * 5000 + 8, nslots=5000))
 
 
 def test_transport_plain_conserves_f32():
