@@ -12,8 +12,11 @@ per source, started together), then:
      each of the nine outputs gated on both;
   2. K2 (fused transport) against the plain remap path on the slice's
      initial state, moved by one EVP solve so the ice is in motion;
-  3. K3 (flux-only transport) against its plain version on the same moving
-     ice, after `construct_fields`;
+  3. K3 (flux-only transport) against its plain version, all four outputs,
+     on the same moving ice after `construct_fields` and on the dense case
+     (`measure.dense_transport_case`: ice moving everywhere), each timed
+     beside the bound of the work its data leaves and the every-candidate
+     bound;
   4. the dynamics-transport path: Model(gx1pop_dyn).run_dynamics(1) (K1 +
      K2) against the plain path after the same step;
   5. the main path: Model(gx1pop_step, device="cuda").run(3), the full
@@ -45,20 +48,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data sheet: HBM rate and f32 (non-tensor-core) peak
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
-
-
-def bound_ms(nbytes: float, flops: float):
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOPS_PER_S * 1e3
-    return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
 class PhaseTimer:
@@ -109,7 +102,8 @@ def main() -> int:
     from cice_tpu_torch.dynamics import remap_exact as rx
     from cice_tpu_torch.dynamics.evp import evp_solve
     from cice_tpu_torch.kernels import _build, evp as kevp, remap as kremap
-    from cice_tpu_torch.measure import (evp_problem,
+    from cice_tpu_torch.measure import (bound_ms, dense_transport_case,
+                                        evp_problem, flux_case,
                                         gpu_name_and_power_limit, timed_ms)
     from cice_tpu_torch.model.diagnostics import check_state
     from cice_tpu_torch.model.driver import Model
@@ -271,35 +265,60 @@ def main() -> int:
           f"{nf2 / 1e9:.2f} GFLOP; with every candidate "
           f"{nf2_all / 1e9:.2f} GFLOP)")
 
-    # ---- K3: flux-only kernel vs its plain version, same moving ice -----
-    mc, mx, my, tc, tx, ty, tstack = rx.construct_fields(grid, am, trm,
-                                                         table, grid.hm)
-    fargs = (grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table)
-    ref_fl = kremap.tracer_fluxes_plain(*fargs)
-    got_fl = kremap.tracer_fluxes_fused(*fargs, tstack=tstack)
-    torch.cuda.synchronize()
-    k3_abs, k3_ok = 0.0, True
-    for nm, g, r in zip(("mflxe", "mflxn", "mtflxe", "mtflxn"), got_fl,
-                        ref_fl):
-        sc = float(r.abs().max())
-        e = float((g - r).abs().max())
-        k3_abs = max(k3_abs, e)
-        ok = sc > 0 and bool(((g - r).abs() <= 2e-5 * r.abs()
-                              + 2e-6 * sc).all())
-        k3_ok = k3_ok and ok
-        print(f"K3 fluxes: {nm} max |ref| {sc:.4e}, max abs error {e:.3e}, "
-              f"within rtol 2e-5 + 2e-6 scale: {ok}")
-    if not k3_ok:
-        fail("K3 disagrees with the plain flux path")
-    k3_ms = timed_ms(lambda: kremap.tracer_fluxes_fused(*fargs,
-                                                        tstack=tstack), 10)
-    k3_plain = timed_ms(lambda: kremap.tracer_fluxes_plain(*fargs), 3)
-    nb3, nf3 = kremap.tracer_fluxes_bound_bytes_flops(
-        table, am.shape[0] - 1, ny, nx)
-    k3_bound, k3_by = bound_ms(nb3, nf3)
-    print(f"K3 fluxes: kernel {k3_ms:.3f} ms, plain {k3_plain:.3f} ms per "
-          f"call (NT={len(table)}); bound {k3_bound:.4f} ms by {k3_by} "
-          f"({nb3 / 1e6:.1f} MB, {nf3 / 1e9:.2f} GFLOP)")
+    # ---- K3: flux-only kernel vs its plain version: the same moving ice,
+    # and the dense case where the ice moves everywhere ------------------
+    ncat = am.shape[0] - 1
+    k3 = {}
+    for case, targs in (("gx1pop", kargs),
+                        ("dense", dense_transport_case(grid, table, ncat,
+                                                       dev))):
+        fargs, tstack = flux_case(*targs)
+        ref_fl = kremap.tracer_fluxes_plain(*fargs)
+        got_fl = kremap.tracer_fluxes_fused(*fargs, tstack=tstack)
+        torch.cuda.synchronize()
+        err, ok = 0.0, True
+        for nm, g, r in zip(("mflxe", "mflxn", "mtflxe", "mtflxn"), got_fl,
+                            ref_fl):
+            sc = float(r.abs().max())
+            e = float((g - r).abs().max())
+            err = max(err, e)
+            o = sc > 0 and g.shape == r.shape and bool(
+                ((g - r).abs() <= 2e-5 * r.abs() + 2e-6 * sc).all())
+            ok = ok and o
+            print(f"K3 fluxes, {case}: {nm} max |ref| {sc:.4e}, max abs "
+                  f"error {e:.3e}, within rtol 2e-5 + 2e-6 scale: {o}")
+        if not ok:
+            fail(f"K3 disagrees with the plain flux path on the {case} case")
+        active, needed = kremap.work_fractions(*targs[:3])
+        nb, nf = kremap.tracer_fluxes_bound_bytes_flops(table, ncat, ny, nx,
+                                                        active, needed)
+        ms = timed_ms(lambda: kremap.tracer_fluxes_fused(*fargs,
+                                                         tstack=tstack), 20,
+                      3)
+        k3[case] = dict(ms=ms, err=err, active=active, needed=needed,
+                        bound=bound_ms(nb, nf), nb=nb, nf=nf)
+        if case == "gx1pop":
+            k3_plain = timed_ms(lambda: kremap.tracer_fluxes_plain(*fargs), 3)
+    nb_all, nf_all = kremap.tracer_fluxes_bound_bytes_flops(table, ncat, ny,
+                                                            nx)
+    k3_all_bound, k3_all_by = bound_ms(nb_all, nf_all)
+    k3i = kremap.flux_kernel_info()
+    k3_ms, k3_abs = k3["gx1pop"]["ms"], max(v["err"] for v in k3.values())
+    k3_bound, k3_by = k3["gx1pop"]["bound"]
+    print(f"K3 fluxes: tile {k3i['tile'][0]}x{k3i['tile'][1]}, "
+          f"{k3i['threads']} threads, {k3i['stages']} buffers of "
+          f"{k3i['chunk']} plane groups, {k3i['smem']} B "
+          f"shared memory per block, {k3i['registers']} registers per "
+          f"thread, {k3i['blocks_per_sm']} block(s) per SM; plain "
+          f"{k3_plain:.3f} ms per call on the gx1pop state (NT={len(table)})")
+    for case, v in k3.items():
+        print(f"K3 fluxes, {case}: kernel {v['ms']:.4f} ms per call; "
+              f"{v['active']:.3f} of 6 donor candidates per edge count, "
+              f"{100 * v['needed']:.1f}% of the cells are needed; bound "
+              f"{v['bound'][0]:.4f} ms by {v['bound'][1]} "
+              f"({v['nb'] / 1e6:.1f} MB, {v['nf'] / 1e9:.3f} GFLOP); with "
+              f"every candidate {k3_all_bound:.4f} ms by {k3_all_by} "
+              f"({nb_all / 1e6:.1f} MB, {nf_all / 1e9:.3f} GFLOP)")
 
     def reset_counters():
         kevp.launches = kremap.launches = kremap.flux_launches = 0
@@ -468,7 +487,10 @@ def main() -> int:
          "replaces": "cice_tpu/kernels/remap_pallas.py:261",
          "launches": launches["tracer_fluxes"], "max_abs_err": k3_abs,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         "bound_by": k3_by, "library_ms": None,
+         "ms_dense": k3["dense"]["ms"],
+         "bound_ms_dense": k3["dense"]["bound"][0],
+         "bound_ms_every_candidate": k3_all_bound},
     ]
     out = {"kernels": results}
     # ridging passes on the main path's last state and deformation
@@ -491,7 +513,9 @@ def main() -> int:
                        k1_tile=tile, k1_blocks=blocks,
                        k1_registers=info["registers"], k2_info=k2i,
                        k2_active_candidates=k2_active,
-                       k2_needed_cells=k2_needed,
+                       k2_needed_cells=k2_needed, k3_info=k3i,
+                       k3_cases={c: dict(v, bound=list(v["bound"]))
+                                 for c, v in k3.items()},
                        launches={"main": launches, "auto": auto_launches,
                                  "dyn": dyn_launches},
                        freshwater_residual=wres, ridge_passes=rdg["npass"],

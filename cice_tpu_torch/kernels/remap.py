@@ -13,6 +13,9 @@ fluxes from the reconstructed fields, between `construct_fields` and
 `update_pre_floor`. It replaces
 cice_tpu/kernels/remap_pallas.py:tracer_fluxes_fused.
 
+Both kernels walk the tracers in the table's dependency order
+(`chain_order`: each parent followed by its children).
+
 On CPU tensors each wrapper runs its plain PyTorch version
 (`transport_plain`, `tracer_fluxes_plain`); on CUDA tensors it launches its
 kernel or raises.
@@ -20,6 +23,7 @@ kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -112,28 +116,37 @@ class Schedule(NamedTuple):
     chunk: int
 
 
-def build_schedule(table, budget: int = CHUNK) -> Schedule:
-    """Cut the flat table into chunks of at most `budget` reconstructions
-    that follow its dependency chains: tracers are taken family by family
-    (a type-1 tracer, then each child followed by its own children), so a
-    tracer is fluxed and updated in the chunk of its parent or a later one,
-    exactly once; a chunk also reconstructs the parents and grandparents
-    its tracers need and does not own."""
-    NT = len(table)
-    if budget < 3:
-        raise ValueError("a chunk must hold a tracer, its parent and its "
-                         "grandparent")
-    par = [f.parent for f in table]
-    kids = [[k for k in range(NT) if par[k] == n] for n in range(NT)]
+def chain_order(table) -> list:
+    """The tracers family by family: a type-1 tracer, then each of its
+    children followed by its own children, in table order. Every tracer
+    comes once, after its parent, and a tracer's descendants follow it
+    without another tracer of its type between."""
+    kids: list = [[] for _ in table]
+    for k, f in enumerate(table):
+        if f.parent >= 0:
+            kids[f.parent].append(k)
     order: list = []
 
     def visit(n):
         order.append(n)
         for k in kids[n]:
             visit(k)
-    for n in range(NT):
-        if par[n] < 0:
+    for n, f in enumerate(table):
+        if f.parent < 0:
             visit(n)
+    return order
+
+
+def build_schedule(table, budget: int = CHUNK) -> Schedule:
+    """Cut the flat table into chunks of at most `budget` reconstructions
+    that follow its dependency chains: tracers are taken in `chain_order`,
+    so a tracer is fluxed and updated in the chunk of its parent or a later
+    one, exactly once; a chunk also reconstructs the parents and
+    grandparents its tracers need and does not own."""
+    if budget < 3:
+        raise ValueError("a chunk must hold a tracer, its parent and its "
+                         "grandparent")
+    par = [f.parent for f in table]
 
     def ancestors(n):
         out = []
@@ -143,7 +156,7 @@ def build_schedule(table, budget: int = CHUNK) -> Schedule:
         return out
 
     chunks, own, ent = [], [], []
-    for n in order:
+    for n in chain_order(table):
         need = [a for a in ancestors(n) if a not in ent] + [n]
         if len(ent) + len(need) > budget:
             chunks.append((own, ent))
@@ -194,6 +207,25 @@ def _table_tensors(table, device):
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     return (i32(ta.ttype), i32(ta.par), i32(ta.gpar), f32(ta.lo),
             f32(ta.hi))
+
+
+_GRID_PLANES: collections.OrderedDict = collections.OrderedDict()
+
+
+def _grid_planes(grid: Grid):
+    """(afn, afe, tarear, hm): the masked N and E edge areas and the two T
+    planes the kernels read, contiguous f32, built once per grid. The last
+    4 grids are kept, each beside its entry so that its id stays its own."""
+    hit = _GRID_PLANES.get(id(grid))
+    if hit is not None and hit[0] is grid:
+        return hit[1]
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    planes = (f32(grid.narea * grid.npm), f32(grid.earea * grid.epm),
+              f32(grid.tarear), f32(grid.hm))
+    _GRID_PLANES[id(grid)] = (grid, planes)
+    while len(_GRID_PLANES) > 4:
+        _GRID_PLANES.popitem(last=False)
+    return planes
 
 
 class PackedSchedule(NamedTuple):
@@ -303,14 +335,7 @@ def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
                              f" on {t.device}")
     if grid.shape != (ny, nx):
         raise ValueError("fused transport kernel: grid shape mismatch")
-    # temporaries may be freed before the kernel runs: the caching
-    # allocator reuses their memory only for later work on this
-    # same stream, which the kernel precedes
-    f32 = lambda t: t.to(torch.float32).contiguous()
-    afn = f32(grid.narea * grid.npm)
-    afe = f32(grid.earea * grid.epm)
-    tarear = f32(grid.tarear)
-    hm = f32(grid.hm)
+    afn, afe, tarear, hm = _grid_planes(grid)
     layout, sched = _schedule_tensors(table, trm.device, budget)
     tx, ty = tile or pick_tile(layout)
     if (tx, ty) not in TILES or smem_bytes(tx, ty, layout) > MAX_SMEM:
@@ -348,24 +373,84 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+#: flux-only kernel (csrc/tracer_fluxes.cu): its tile (x, y), a thread per
+#: (cell, edge family), so 2*x*y threads; its staging buffers; the plane
+#: groups it stages per barrier by default
+FLUX_TILE = (32, 2)
+FLUX_STAGES = 3
+FLUX_CHUNK = 8
+
+
+def flux_smem_bytes(chunk: int = FLUX_CHUNK) -> int:
+    """Dynamic shared memory of one flux-kernel block: FLUX_STAGES buffers
+    of `chunk` plane groups of 3 planes on the ring tile around FLUX_TILE,
+    and 3 ints per ring cell (mirrors smem_bytes in csrc/tracer_fluxes.cu)."""
+    tx, ty = FLUX_TILE
+    return 4 * (3 * FLUX_STAGES * chunk + 3) * (tx + 2) * (ty + 2)
+
+
+def flux_order(table) -> np.ndarray:
+    """(NT, 2) int32: per position of `chain_order`, the tracer and its
+    type | has_dependents << 2. The flux kernel keeps the chain sums of the
+    last type-1 and type-2 tracer with dependents in registers; in this
+    order they are the parent and grandparent of every tracer that needs
+    them."""
+    return np.asarray([(n, table[n].ttype | int(table[n].has_dependents) << 2)
+                       for n in chain_order(table)], np.int32).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=16)
+def _flux_order_tensor(table, device):
+    return torch.as_tensor(flux_order(table), device=device)
+
+
 def _flux_lib():
     lib = load("tracer_fluxes")
-    lib.tracer_fluxes.argtypes = [ctypes.c_void_p] * 15 + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tracer_fluxes.argtypes = [ctypes.c_void_p] * 13 + \
+        [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.tracer_fluxes.restype = ctypes.c_int
+    lib.tracer_fluxes_info.argtypes = [ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.tracer_fluxes_info.restype = ctypes.c_int
     return lib
 
 
-def tracer_fluxes_fused(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
-                        table, *, tstack=None):
-    """Mass and mass*tracer transports across E and N edges in one kernel
-    launch; returns (mflxe, mflxn, mtflxe, mtflxn). tstack: the
-    (ncat, 3*NT, ny, nx) [tc|tx|ty] stack `construct_fields` returns;
-    without it the three are concatenated here."""
+def _flux_chunk(chunk: int) -> int:
+    if chunk < 1 or flux_smem_bytes(chunk) > MAX_SMEM:
+        raise ValueError(f"flux-only transport kernel: {chunk} plane groups "
+                         "per chunk do not fit a block's shared memory")
+    return chunk
+
+
+def flux_kernel_info(chunk: int = FLUX_CHUNK) -> dict:
+    """Tile, threads, staging, shared memory and (from the CUDA runtime)
+    registers per thread and resident blocks per SM of the flux-only
+    kernel on the current CUDA device, staging `chunk` plane groups per
+    barrier."""
+    info = (ctypes.c_int * 4)()
+    check(_flux_lib().tracer_fluxes_info(_flux_chunk(chunk), info),
+          "tracer_fluxes_info")
+    return dict(tile=FLUX_TILE, threads=2 * FLUX_TILE[0] * FLUX_TILE[1],
+                stages=FLUX_STAGES, chunk=chunk,
+                smem=flux_smem_bytes(chunk) + info[1], registers=info[0],
+                blocks_per_sm=info[3])
+
+
+def _f32c(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself where it is contiguous f32, else a contiguous f32 copy."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
+def tracer_fluxes_cuda(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
+                       table, *, tstack=None, chunk: int = FLUX_CHUNK):
+    """The flux-only kernel in CUDA; returns (mflxe, mflxn, mtflxe,
+    mtflxn). tstack: the (ncat, 3*NT, ny, nx) [tc|tx|ty] stack
+    `construct_fields` returns; without it the three are concatenated here.
+    chunk: plane groups staged per barrier; a measurement may name another
+    than FLUX_CHUNK."""
     global flux_launches
-    if not _on_cuda(tc):
-        return tracer_fluxes_plain(grid, mom_n, mom_e, mc, mx, my, tc, tx,
-                                   ty, table)
     if grid.bc.tripole or grid.bc.y_cyclic:
         raise NotImplementedError(
             "flux-only transport kernel: tripole/y-cyclic boundaries are not "
@@ -373,14 +458,14 @@ def tracer_fluxes_fused(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
     if tc.dtype != torch.float32:
         raise ValueError("flux-only transport kernel is float32-only, got "
                          f"{tc.dtype}; use remap_kernel='xla'")
+    _flux_chunk(chunk)
     if tstack is None:
         tstack = torch.cat([tc, tx, ty], dim=1)
     ncat, NT, ny, nx = tc.shape
     if NT != len(table):
         raise ValueError(f"tc has {NT} tracers, the table {len(table)}")
-    f32 = lambda t: t.to(torch.float32).contiguous()
     tstack, mc, mx, my, mom_n, mom_e = (
-        f32(t) for t in (tstack, mc, mx, my, mom_n, mom_e))
+        _f32c(t) for t in (tstack, mc, mx, my, mom_n, mom_e))
     expect = {"tstack": (tstack, (ncat, 3 * NT, ny, nx)),
               "mc": (mc, (ncat + 1, ny, nx)), "mx": (mx, (ncat + 1, ny, nx)),
               "my": (my, (ncat + 1, ny, nx)),
@@ -393,36 +478,60 @@ def tracer_fluxes_fused(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
                              f"{tuple(t.shape)} on {t.device}")
     if grid.shape != (ny, nx):
         raise ValueError("flux-only transport kernel: grid shape mismatch")
-    # temporaries may be freed before the kernel runs: see transport_fused
-    afn = f32(grid.narea * grid.npm)
-    afe = f32(grid.earea * grid.epm)
-    ttype, par, gpar, _, _ = _table_tensors(table, tc.device)
+    if ny * nx >= 2 ** 31:
+        raise ValueError("flux-only transport kernel: the grid is too large "
+                         "for its 32-bit cell indices")
+    afn, afe, _, _ = _grid_planes(grid)
+    order = _flux_order_tensor(table, tc.device)
     mflxe = torch.empty_like(mc)
     mflxn = torch.empty_like(mc)
-    mtflxe = torch.empty_like(tc, memory_format=torch.contiguous_format)
+    mtflxe = torch.empty((ncat, NT, ny, nx), dtype=torch.float32,
+                         device=tc.device)
     mtflxn = torch.empty_like(mtflxe)
     stream = torch.cuda.current_stream(tc.device).cuda_stream
     ptrs = [t.data_ptr() for t in (tstack, mc, mx, my, mom_n, mom_e, afn,
-                                   afe, ttype, par, gpar, mflxe, mflxn,
-                                   mtflxe, mtflxn)]
+                                   afe, order, mflxe, mflxn, mtflxe,
+                                   mtflxn)]
     err = _flux_lib().tracer_fluxes(*ptrs, ncat, NT, ny, nx,
-                                    int(grid.bc.x_cyclic), stream)
+                                    int(grid.bc.x_cyclic), chunk, stream)
     check(err, "tracer_fluxes")
     flux_launches += 1
     return mflxe, mflxn, mtflxe, mtflxn
 
 
-#: flops of one tracer's candidate term by chain type (the sums of
-#: csrc/*.cu: 5 / 15+5 / 15+5+1, plus the accumulation)
+def tracer_fluxes_fused(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
+                        table, *, tstack=None):
+    """Mass and mass*tracer transports across E and N edges in one kernel
+    launch; returns (mflxe, mflxn, mtflxe, mtflxn). On CPU tensors the
+    plain version."""
+    if not _on_cuda(tc):
+        return tracer_fluxes_plain(grid, mom_n, mom_e, mc, mx, my, tc, tx,
+                                   ty, table)
+    return tracer_fluxes_cuda(grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
+                              table, tstack=tstack)
+
+
+#: flops of one tracer's candidate term by chain type in the one-pass
+#: kernel (csrc/transport_fused.cu: 5 / 15+5 / 15+5+1, plus the
+#: accumulation)
 _CHAIN_FLOPS = {1: 6, 2: 21, 3: 22}
 
 
-def _edge_flops(table, ncat: int, cands: float = 6.0) -> float:
+def _memo_flops(f) -> int:
+    """Flops of one tracer's candidate term in the flux-only kernel
+    (csrc/tracer_fluxes.cu), which keeps the chain sums: type 1 its sum (5)
+    and, with dependents, the triple's two others (10); type 2 its sum from
+    the parent's triple (5); type 3 one product; plus the accumulation."""
+    return {1: 6 + 10 * int(f.has_dependents), 2: 6, 3: 2}[f.ttype]
+
+
+def _edge_flops(table, ncat: int, cands: float = 6.0,
+                chain=lambda f: _CHAIN_FLOPS[f.ttype]) -> float:
     """Flops of one edge of one cell over all categories with `cands`
     donor candidates that count: per candidate the six moment sums (30) and
-    the mass sum, per tracer its candidate terms and the scaling by the
-    edge area; the open-water row once."""
-    return ncat * (cands * 31 + sum(cands * _CHAIN_FLOPS[f.ttype] + 2
+    the mass sum, per tracer its candidate terms (`chain`) and the scaling
+    by the edge area; the open-water row once."""
+    return ncat * (cands * 31 + sum(cands * chain(f) + 2
                                     for f in table)) + cands * 6
 
 
@@ -433,12 +542,20 @@ def work_fractions(grid: Grid, mom_n, mom_e):
     `needed` is the share of cells that donate through such a candidate,
     the only ones whose tracer reconstruction is read.
 
+    The flux-only kernel leaves out the same candidates, and loads the
+    reconstructions (tracer and mass) of the `needed` cells only.
+
     On finite fields leaving these out changes no bit. A non-finite tracer
-    in a cell that donates nothing stays in that cell in the kernel (its
-    update keeps a NaN through the clip to the rails), while the plain
-    version multiplies it by the zero moments and hands NaN to the
-    neighbours; the cell itself is non-finite in both, so `check_state`
-    flags such a state on either path."""
+    in a cell that donates nothing stays in that cell in the one-pass
+    kernel (its update keeps a NaN through the clip to the rails), while
+    the plain version multiplies it by the zero moments and hands NaN to
+    the neighbours; the cell itself is non-finite in both, so `check_state`
+    flags such a state on either path. The flux-only kernel never reads a
+    non-finite reconstruction of such a cell: its fluxes stay finite, equal
+    bit for bit to the plain version's on the same fields with that value
+    made finite, while the plain version's fluxes of the edges around the
+    cell are NaN; the update that follows keeps the NaN in the cell, as it
+    does on the plain path."""
     from ..core.halo import shift
     from ..dynamics.remap_exact import OFFS_E, OFFS_N
     ny, nx = mom_n.shape[-2:]
@@ -452,18 +569,25 @@ def work_fractions(grid: Grid, mom_n, mom_e):
     return nact / (2 * ny * nx), float(need.sum()) / (ny * nx)
 
 
-def tracer_fluxes_bound_bytes_flops(table, ncat: int, ny: int, nx: int):
+def tracer_fluxes_bound_bytes_flops(table, ncat: int, ny: int, nx: int,
+                                    active: float = 6.0,
+                                    needed: float = 1.0):
     """(bytes, flops) one flux pass must move and do, counted from
-    csrc/tracer_fluxes.cu. Bytes: the 3*NT reconstruction planes per
-    category, the 3 mass reconstruction planes per category and for open
-    water, the 120 moment planes and 2 edge-area planes read once; the two
-    families' mass (ncat+1) and tracer (ncat*NT) flux planes written once.
-    Flops: 2 edges per cell."""
+    csrc/tracer_fluxes.cu. Bytes: for the `needed` share of cells the
+    reconstruction planes per category (tc, tx, ty of a type-1 or type-2
+    tracer, tc alone of a type-3 one) and the 3 mass reconstruction planes
+    per category and for open water; the 120 moment planes and 2 edge-area
+    planes read once; the two families' mass (ncat+1) and tracer (ncat*NT)
+    flux planes written once. Flops: 2 edges per cell with `active` donor
+    candidates of 6 and the chain sums kept (`_memo_flops`). `active` and
+    `needed` come from `work_fractions`; the defaults count every candidate
+    and every cell."""
     NT = len(table)
     P = ny * nx
-    nbytes = 4 * P * (3 * ncat * NT + 3 * (ncat + 1) + 120 + 2
+    recon = ncat * sum(1 if f.ttype == 3 else 3 for f in table)
+    nbytes = 4 * P * (needed * (recon + 3 * (ncat + 1)) + 120 + 2
                       + 2 * (ncat * NT + ncat + 1))
-    return nbytes, P * 2 * _edge_flops(table, ncat)
+    return nbytes, P * 2 * _edge_flops(table, ncat, active, _memo_flops)
 
 
 def bound_bytes_flops(table, ncat: int, ny: int, nx: int,

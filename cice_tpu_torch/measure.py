@@ -1,6 +1,7 @@
-"""What the port's measurement scripts share (chip_smoke.py,
-tune_kernels.py): the CUDA-event timer, the card's name and power limit,
-and the EVP inputs K1 is held against its plain version on.
+"""What the port's measurement scripts and tests share (chip_smoke.py,
+tune_kernels.py, tests/test_torch_kernels_cuda.py): the CUDA-event timer,
+the card's name and power limit, the EVP inputs K1 is held against its
+plain version on, and the dense transport case K2 and K3 are timed on.
 """
 
 from __future__ import annotations
@@ -11,6 +12,18 @@ import torch
 
 from .columns.ridging import ice_strength
 from .dynamics.common import dyn_prep, evp_params
+
+# H100 SXM data sheet: HBM rate and f32 (non-tensor-core) peak
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def bound_ms(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time one H100 SXM could
+    take to move `nbytes` and do `flops` in f32, and which binds."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOPS_PER_S * 1e3
+    return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
 def timed_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -60,3 +73,36 @@ def evp_problem(grid, cfg_dyn, dt, dev, ndte=None):
     sp, sm, s12 = ((2e3 * rand((4,) + grid.shape) - 1e3).to(dev)
                    for _ in range(3))
     return (grid, p, prep, strength, sp, sm, s12), dict(uocn=z, vocn=z)
+
+
+def dense_transport_case(grid, table, ncat: int, dev, seed: int = 3):
+    """(grid, mom_n, mom_e, am, trm, table) of one transport pass where the
+    ice moves everywhere: up to 0.15 of random ice per category on every
+    ocean cell, tracers in [0.5, 2.5) and velocities of up to 0.3 cells per
+    hour in random directions on every cell, made from `seed`. Beside the
+    gx1pop state, where the ice moves in the polar caps only, it is the
+    other end of what the kernels leave out (kernels/remap.py
+    `work_fractions`: at gx1, 1.74 of 6 donor candidates per edge count and
+    70.6% of the cells are needed, against 0.315 and 16.2%)."""
+    from .dynamics import remap_exact as rx
+    ny, nx = grid.shape
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda *s: torch.rand(*s, generator=gen).to(dev)
+    aicen = 0.15 * rnd(ncat, ny, nx) * grid.hm
+    am = torch.cat([1.0 - aicen.sum(0, keepdim=True), aicen]).contiguous()
+    trm = (2.0 * rnd(ncat, len(table), ny, nx) + 0.5).contiguous()
+    u = 0.3 * grid.dxU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0)
+    v = 0.3 * grid.dyU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0)
+    dxs, dys, _ = rx.departure_points_scaled(grid, u, v, 3600.0, True)
+    mom_n, mom_e = (t.contiguous() for t in rx.edge_moments(grid, dxs, dys))
+    return grid, mom_n, mom_e, am, trm, table
+
+
+def flux_case(grid, mom_n, mom_e, am, trm, table):
+    """(args, tstack) of the flux-only kernel on one transport pass's
+    inputs, reconstructed as `horizontal_remap_exact` does: args are
+    (grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table)."""
+    from .dynamics import remap_exact as rx
+    mc, mx, my, tc, tx, ty, tstack = rx.construct_fields(grid, am, trm,
+                                                         table, grid.hm)
+    return (grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table), tstack

@@ -357,10 +357,15 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
 
 
 def resolve_remap_kernel(cfg, grid: Grid, dtype: torch.dtype) -> str:
-    """The transport engine for remap_kernel='auto' (mirrors
-    cice_tpu/model/step.py:806-826): the fused CUDA kernel on a CUDA device
-    with f32 state and neither tripole nor y-cyclic boundaries, else the
-    plain path (the JAX package's 'xla')."""
+    """The transport engine for remap_kernel='auto': the one-pass CUDA
+    kernel (K2, 'fused_full') on a CUDA device with f32 state and neither
+    tripole nor y-cyclic boundaries, else the plain path (the JAX
+    package's 'xla'). One difference from cice_tpu/model/step.py:806-826:
+    there is no 'fused_pallas' fallback for tables too large for the
+    one-pass kernel. The JAX package needs it where the TPU's VMEM runs
+    out; K2 holds a chunk of its schedule in shared memory, not the table,
+    and finds a tile for tables of thousands of tracers
+    (tests/test_torch_remap_chunks.py: 3005)."""
     fk = cfg.dynamics.remap_kernel
     if fk != "auto":
         return fk

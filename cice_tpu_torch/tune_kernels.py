@@ -1,20 +1,28 @@
-"""Measure the design choices of K1 and K2 on one GPU at the gx1 shapes.
+"""Measure the design choices of K1, K2 and K3 on one GPU at the gx1
+shapes.
 
     python -m cice_tpu_torch.tune_kernels [--skip-build-report]
+                                   [--only evp transport wrapper fluxes]
 
 Prints, with the card's name and power limit:
 
-- what `nvcc -Xptxas -v` reports for both sources (registers, spills) and
-  the instruction counts of the persistent EVP kernel's subcycle loop
-  between its block barriers (from `cuobjdump -sass`, where the toolkit has
-  it);
+- what `nvcc -Xptxas -v` reports for the three sources (registers, spills,
+  shared memory) and the instruction counts of the persistent EVP kernel's
+  subcycle loop between its block barriers (from `cuobjdump -sass`, where
+  the toolkit has it);
 - K1 `persistent`: microseconds per subcycle (a solve with 2400 subcycles
   less one with 1200) for several tiles, and for tiles so small that only
   the barrier and the fixed latencies remain; the `stream` route beside it;
 - K2: milliseconds per call on the gx1pop state (ice moving in the polar
   caps only) for tiles and chunk sizes, and on a dense case (random ice and
-  velocity everywhere, every edge with donors), each checked against the
-  plain version.
+  velocity everywhere, every edge with donors: `measure.
+  dense_transport_case`), each checked against the plain version;
+- K3: milliseconds per call on the same two cases through the wrapper's
+  defaults (`--only wrapper` uses nothing else of the package, so copied
+  with measure.py into another tree it times that tree's K3), then for
+  4, 8 and 16 plane groups staged per barrier, passed to
+  `tracer_fluxes_cuda(chunk=)`, each checked against the plain version
+  (max abs error), beside the bounds.
 
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -36,13 +44,14 @@ from .core.grid import rectgrid
 from .dynamics import remap_exact as rx
 from .dynamics.evp import evp_solve
 from .kernels import _build, evp as kevp, remap as kremap
-from .measure import evp_problem, gpu_name_and_power_limit, timed_ms
+from .measure import (bound_ms, dense_transport_case, evp_problem,
+                      flux_case, gpu_name_and_power_limit, timed_ms)
 from .model.driver import Model
 from .model.step import step_dyn_horiz
 
 
 def build_report() -> None:
-    for name in ("evp_fused", "transport_fused"):
+    for name in _build.SOURCES:
         src = os.path.join(_build.CSRC, name + ".cu")
         out = os.path.join(_build.build_dir(), name + "_report.so")
         r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
@@ -51,7 +60,7 @@ def build_report() -> None:
         fn = ""
         for line in (r.stdout + r.stderr).splitlines():
             m = re.search(r"Compiling entry function '\w*?\d"
-                          r"((?:evp|transport)_[a-z_]*?kernel)E", line)
+                          r"((?:evp|transport|tracer)_[a-z_]*?kernel)E", line)
             if m:
                 fn = m.group(1)
             elif "spill" in line or "Used" in line:
@@ -131,9 +140,11 @@ def tune_evp(m, dev) -> None:
               "per subcycle")
 
 
-def tune_transport(m, dev) -> None:
+def transport_cases(m, dev) -> dict:
+    """The two transport inputs K2 and K3 are timed on: the gx1pop state
+    moved by one EVP solve (ice moving in the polar caps), and the dense
+    case; each (grid, mom_n, mom_e, am, trm, table)."""
     cfg, grid = m.cfg, m.grid
-    ny, nx = grid.shape
     dt = cfg.setup.dt
     st, _ = step_dyn_horiz(m.static, grid, m.state, m.forcing,
                            m.forcing.strax + 0.1, m.forcing.stray + 0.05, dt)
@@ -142,21 +153,13 @@ def tune_transport(m, dev) -> None:
     dxs, dys, _ = rx.departure_points_scaled(grid, st.uvel, st.vvel, dt,
                                              cfg.dynamics.l_dp_midpt)
     mom_n, mom_e = (t.contiguous() for t in rx.edge_moments(grid, dxs, dys))
-    sparse = (grid, mom_n, mom_e, am, trm, table)
+    return {"gx1pop state": (grid, mom_n, mom_e, am, trm, table),
+            "dense case": dense_transport_case(grid, table, am.shape[0] - 1,
+                                               dev)}
 
-    gen = torch.Generator(device="cpu").manual_seed(3)
-    rnd = lambda *s: torch.rand(*s, generator=gen).to(dev)
-    ncat, NT = am.shape[0] - 1, len(table)
-    aicen = 0.15 * rnd(ncat, ny, nx) * grid.hm
-    amd = torch.cat([1.0 - aicen.sum(0, keepdim=True), aicen]).contiguous()
-    trmd = (2.0 * rnd(ncat, NT, ny, nx) + 0.5).contiguous()
-    u = 0.3 * grid.dxU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0)
-    v = 0.3 * grid.dyU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0)
-    dxs, dys, _ = rx.departure_points_scaled(grid, u, v, 3600.0, True)
-    mn, me = (t.contiguous() for t in rx.edge_moments(grid, dxs, dys))
-    dense = (grid, mn, me, amd, trmd, table)
 
-    for name, case in (("gx1pop state", sparse), ("dense case", dense)):
+def tune_transport(cases) -> None:
+    for name, case in cases.items():
         active, needed = kremap.work_fractions(*case[:3])
         ref_am, ref_trm = kremap.transport_plain(*case)
         print(f"K2 {name}: {active:.3f} of 6 donor candidates per edge, "
@@ -177,9 +180,59 @@ def tune_transport(m, dev) -> None:
                       f"{info['blocks_per_sm']} block(s) per SM")
 
 
+def time_flux_wrapper(cases) -> None:
+    for name, case in cases.items():
+        active, needed = kremap.work_fractions(*case[:3])
+        fargs, tstack = flux_case(*case)
+        ref = kremap.tracer_fluxes_plain(*fargs)
+        got = kremap.tracer_fluxes_fused(*fargs, tstack=tstack)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        runs = [timed_ms(lambda: kremap.tracer_fluxes_fused(
+            *fargs, tstack=tstack), 20, 3) for _ in range(3)]
+        print(f"K3 {name}, the wrapper's defaults: "
+              + " / ".join(f"{ms:.4f}" for ms in runs)
+              + f" ms (3 runs of 20), max abs error {err:.1e}; {active:.3f}"
+              f" of 6 donor candidates per edge, {100 * needed:.1f}% of the "
+              "cells needed")
+
+
+def tune_fluxes(cases) -> None:
+    for name, case in cases.items():
+        grid, mom_n, mom_e, am, trm, table = case
+        ny, nx = grid.shape
+        ncat = am.shape[0] - 1
+        active, needed = kremap.work_fractions(grid, mom_n, mom_e)
+        fargs, tstack = flux_case(*case)
+        ref = kremap.tracer_fluxes_plain(*fargs)
+        nb, nf = kremap.tracer_fluxes_bound_bytes_flops(table, ncat, ny, nx,
+                                                        active, needed)
+        every = bound_ms(*kremap.tracer_fluxes_bound_bytes_flops(table, ncat,
+                                                                 ny, nx))
+        print(f"K3 {name}: {active:.3f} of 6 donor candidates per edge, "
+              f"{100 * needed:.1f}% of the cells needed; bound "
+              f"{bound_ms(nb, nf)[0]:.4f} ms by {bound_ms(nb, nf)[1]} "
+              f"({nb / 1e6:.1f} MB), with every candidate {every[0]:.4f} ms")
+        for chunk in (4, 8, 16):
+            info = kremap.flux_kernel_info(chunk)
+            got = kremap.tracer_fluxes_cuda(*fargs, tstack=tstack,
+                                            chunk=chunk)
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            ms = timed_ms(lambda: kremap.tracer_fluxes_cuda(
+                *fargs, tstack=tstack, chunk=chunk), 20, 3)
+            print(f"K3 {name}, tile {info['tile']}, {info['stages']} buffers "
+                  f"of {chunk} plane groups: {ms:.4f} ms, max abs error "
+                  f"{err:.1e}, "
+                  f"{info['threads']} threads, {info['smem']} B, "
+                  f"{info['registers']} registers, {info['blocks_per_sm']} "
+                  "block(s) per SM")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-build-report", action="store_true")
+    ap.add_argument("--only", nargs="+", default=("evp", "transport",
+                                                  "wrapper", "fluxes"),
+                    choices=("evp", "transport", "wrapper", "fluxes"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("tune_kernels: no CUDA device")
@@ -189,8 +242,15 @@ def main() -> int:
         build_report()
     dev = torch.device("cuda")
     m = Model(C.gx1pop_dyn(), device=dev)
-    tune_evp(m, dev)
-    tune_transport(m, dev)
+    if "evp" in args.only:
+        tune_evp(m, dev)
+    cases = transport_cases(m, dev)
+    if "transport" in args.only:
+        tune_transport(cases)
+    if "wrapper" in args.only:
+        time_flux_wrapper(cases)
+    if "fluxes" in args.only:
+        tune_fluxes(cases)
     return 0
 
 

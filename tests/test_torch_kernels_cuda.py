@@ -260,12 +260,180 @@ def test_tracer_fluxes_kernel_matches_plain(cuda, ew):
     alone = kremap.tracer_fluxes_fused(*args)      # packs tc|tx|ty itself
     torch.cuda.synchronize()
     assert kremap.flux_launches == before + 2
-    for name, a, b, r in zip(("mflxe", "mflxn", "mtflxe", "mtflxn"), got,
-                             alone, ref):
-        scale = float(r.abs().max())
-        assert scale > 0, name
-        torch.testing.assert_close(a, r, rtol=2e-5, atol=2e-6 * scale)
-        torch.testing.assert_close(b, a, rtol=0, atol=0)
+    _fluxes_exact(got, ref)
+    _fluxes_exact(alone, ref)
+
+
+FLUX_OUT = ("mflxe", "mflxn", "mtflxe", "mtflxn")
+
+
+def _fluxes_exact(got, ref):
+    """K3 repeats its plain version's arithmetic (-fmad=false): all four
+    outputs equal bit for bit, signed zeros included."""
+    assert max(float(r.abs().max()) for r in ref) > 0
+    for name, a, r in zip(FLUX_OUT, got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype, name
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+        assert float((a - r).abs().max()) == 0.0, name
+        assert torch.equal(a.view(torch.int32), r.view(torch.int32)), name
+
+
+def _flux_problem(cuda, table, ncat, ny, nx, seed, ew="cyclic", patch=None):
+    """K3's inputs after `construct_fields` on random ice moving at up to
+    0.3 cells per hour (only inside `patch`, a (j0, j1, i0, i1) box, when
+    given); ((args), tstack)."""
+    from cice_tpu_torch.core.grid import rectgrid
+    from cice_tpu_torch.core.halo import BC
+    from cice_tpu_torch.measure import flux_case
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda *s: torch.rand(*s, generator=gen).to(cuda)
+    g = rectgrid(nx, ny, kmt_type="default", bc=BC(ew, "open"), device=cuda)
+    aicen = 0.3 * rnd(ncat, ny, nx) * g.hm
+    am = torch.cat([1.0 - aicen.sum(0, keepdim=True), aicen]).contiguous()
+    trm = (2.0 * rnd(ncat, len(table), ny, nx) - 0.5).contiguous()
+    move = torch.ones(ny, nx, device=cuda)
+    if patch is not None:
+        move.zero_()
+        move[patch[0]:patch[1], patch[2]:patch[3]] = 1.0
+    u = 0.3 * g.dxU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0) * move
+    v = 0.3 * g.dyU / 3600.0 * (2.0 * rnd(ny, nx) - 1.0) * move
+    dxs, dys, _ = rx.departure_points_scaled(g, u, v, 3600.0, True)
+    mom_n, mom_e = (t.contiguous() for t in rx.edge_moments(g, dxs, dys))
+    return flux_case(g, mom_n, mom_e, am, trm, table)
+
+
+def _default_table(cuda):
+    return rx.build_flat_table(Model(tconfig.gx1pop_dyn(48, 40),
+                                     device=cuda).static.registry)
+
+
+@pytest.mark.parametrize("ny,nx,ew,how", [
+    (37, 70, "cyclic", {}),              # ragged in y and x
+    (37, 70, "open", {}),
+    (6, 20, "cyclic", {}),               # narrower than one tile
+    (8, 32, "open", {}),                 # exactly one 32x8 tile
+    (9, 33, "cyclic", {}),               # one cell over, rows not 16 B
+    (37, 70, "cyclic", dict(chunk=4)),   # 79 plane groups: chunks of 4
+    (37, 70, "cyclic", dict(chunk=16)),  # and 16 end ragged too
+    (9, 33, "open", dict(chunk=1))])
+def test_tracer_fluxes_kernel_ragged_grids_exact(cuda, ny, nx, ew, how):
+    """The default 25-tracer table on grids that do not fill their tiles,
+    cyclic and open east-west, staged 8 plane groups per barrier and 1, 4
+    or 16."""
+    table = _default_table(cuda)
+    args, tstack = _flux_problem(cuda, table, 3, ny, nx, ny * nx, ew)
+    before = kremap.flux_launches
+    ref = kremap.tracer_fluxes_plain(*args)
+    got = kremap.tracer_fluxes_cuda(*args, tstack=tstack, **how)
+    torch.cuda.synchronize()
+    assert kremap.flux_launches == before + 1
+    _fluxes_exact(got, ref)
+
+
+@pytest.mark.parametrize("ew", ["cyclic", "open"])
+def test_tracer_fluxes_kernel_dense_case_exact(cuda, ew):
+    """The dense recipe of the measurements (`measure.dense_transport_case`:
+    ice moving everywhere) on a 5-category grid of 72x96."""
+    from cice_tpu_torch.core.grid import rectgrid
+    from cice_tpu_torch.core.halo import BC
+    from cice_tpu_torch.measure import dense_transport_case, flux_case
+    table = _default_table(cuda)
+    g = rectgrid(96, 72, kmt_type="default", bc=BC(ew, "open"), device=cuda)
+    case = dense_transport_case(g, table, 5, cuda)
+    active, needed = kremap.work_fractions(*case[:3])
+    assert active > 1.0 and needed > 0.6
+    args, tstack = flux_case(*case)
+    ref = kremap.tracer_fluxes_plain(*args)
+    got = kremap.tracer_fluxes_fused(*args, tstack=tstack)
+    torch.cuda.synchronize()
+    _fluxes_exact(got, ref)
+
+
+@pytest.mark.parametrize("nlay", [30, 120])
+def test_tracer_fluxes_kernel_large_tables(cuda, nlay):
+    """Any NT (35 and 125 tracers, few of them with dependents) on a grid
+    ragged in both directions, staged a tracer at a time."""
+    from cice_tpu_torch.model.state import DEP_AICE, DEP_VICE, TracerSpec
+    reg = (TracerSpec("alvl", DEP_AICE, hi=1.0),
+           TracerSpec("apnd", DEP_AICE, parent="alvl", hi=1.0),
+           TracerSpec("hpnd", DEP_AICE, parent="apnd"),
+           TracerSpec("wide", DEP_VICE, nlay, lo=-1.0, hi=1.0))
+    table = rx.build_flat_table(reg)
+    assert len(table) == nlay + 5
+    args, tstack = _flux_problem(cuda, table, 3, 37, 70, nlay)
+    ref = kremap.tracer_fluxes_plain(*args)
+    got = kremap.tracer_fluxes_fused(*args, tstack=tstack)
+    torch.cuda.synchronize()
+    _fluxes_exact(got, ref)
+
+
+@pytest.mark.parametrize("nx", [68, 70])
+def test_tracer_fluxes_kernel_still_tiles_exact(cuda, nx):
+    """Ice moving in one patch: most tiles have no candidate with a moment
+    and write their signed zeros whole (16-byte rows where nx is a multiple
+    of 4, single values where it is not)."""
+    table = _default_table(cuda)
+    args, tstack = _flux_problem(cuda, table, 3, 40, nx, nx,
+                                 patch=(12, 20, 30, 45))
+    active, needed = kremap.work_fractions(*args[:3])
+    assert 0.0 < active < 0.5 and 0.0 < needed < 0.2
+    ref = kremap.tracer_fluxes_plain(*args)
+    got = kremap.tracer_fluxes_fused(*args, tstack=tstack)
+    torch.cuda.synchronize()
+    _fluxes_exact(got, ref)
+    assert bool(torch.signbit(got[3][:, :, :8]).all())   # (-0) * area
+
+
+def test_tracer_fluxes_kernel_never_reads_a_cell_that_donates_nothing(cuda):
+    """A NaN reconstruction (tracer and mass) in a cell that no candidate
+    with a moment takes from: the kernel never loads it, so its fluxes stay
+    finite and equal, bit for bit, the plain version's on the same fields
+    with that cell made finite; the plain version hands the NaN to the
+    fluxes of the edges around the cell (0 * NaN). The update that follows
+    keeps the NaN in the cell on both paths (kremap.work_fractions)."""
+    table = _default_table(cuda)
+    args, tstack = _flux_problem(cuda, table, 3, 20, 26, 7,
+                                 patch=(6, 12, 8, 16))
+    g, mom_n, mom_e = args[:3]
+    act_n = (mom_n != 0).any(dim=1)
+    act_e = (mom_e != 0).any(dim=1)
+    need = torch.zeros(g.shape, dtype=torch.bool, device=cuda)
+    for act, offs in ((act_n, rx.OFFS_N), (act_e, rx.OFFS_E)):
+        for ci, (dj, di) in enumerate(offs):
+            need |= rx._shs(act[ci].float(), -dj, -di, g.bc) > 0
+    j0, i0 = 16, 3
+    assert not bool(need[j0, i0]) and bool(need.any())
+    NT = len(table)
+    n0 = next(n for n, f in enumerate(table) if f.ttype == 1)
+
+    def planted(value):
+        ts, mc, mx, my = (t.clone() for t in (tstack, *args[3:6]))
+        for k in (n0, NT + n0, 2 * NT + n0):
+            ts[1, k, j0, i0] = value
+        for t in (mc, mx, my):
+            t[2, j0, i0] = value
+        ta = (ts[:, :NT], ts[:, NT:2 * NT], ts[:, 2 * NT:])
+        return (*args[:3], mc, mx, my, *ta, table), ts
+
+    nan_args, nan_ts = planted(float("nan"))
+    fin_args, _ = planted(0.0)
+    ref_nan = kremap.tracer_fluxes_plain(*nan_args)
+    ref_fin = kremap.tracer_fluxes_plain(*fin_args)
+    got = kremap.tracer_fluxes_fused(*nan_args, tstack=nan_ts)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(ref_nan[3]).all())    # the plain spreads
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _fluxes_exact(got, ref_fin)
+    for a, r in zip(got, ref_nan):
+        ok = torch.isfinite(r)
+        assert torch.equal(a[ok], r[ok])
+
+
+def test_tracer_fluxes_kernel_info(cuda):
+    info = kremap.flux_kernel_info()
+    assert info["tile"] == (32, 2) and info["threads"] == 128
+    assert info["smem"] >= kremap.flux_smem_bytes()
+    assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 128
 
 
 def test_coupled_step_goes_through_its_kernels(cuda):

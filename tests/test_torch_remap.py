@@ -399,13 +399,15 @@ def test_tracer_fluxes_ineligible_on_cuda_raise(monkeypatch, case):
 
 
 def test_tracer_fluxes_bound_counts_planes():
-    """The byte bound counts every plane once: at the gx1 shapes with the
-    default tracers, 515 planes read and 262 written."""
+    """The byte bound counts every plane it reads once: at the gx1 shapes
+    with the default tracers, 495 planes read (the 2 type-3 tracers' tc
+    alone) and 262 written."""
     table = trx.build_flat_table(treg(tconfig.Config()))
     nbytes, flops = tkremap.tracer_fluxes_bound_bytes_flops(table, 5, 384,
                                                             320)
     assert len(table) == 25
-    assert nbytes == 4 * 384 * 320 * (375 + 18 + 120 + 2 + 2 * (125 + 6))
+    assert sum(f.ttype == 3 for f in table) == 2
+    assert nbytes == 4 * 384 * 320 * (355 + 18 + 120 + 2 + 2 * (125 + 6))
     assert flops > 0
 
 
