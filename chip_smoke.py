@@ -26,7 +26,15 @@ per source, started together), then:
      budget within Model.step's 1 % rule, and agreement with the plain path
      (plain EVP loop, plain transport) after the same 3 steps;
   6. one coupled step of gx1pop_step(remap_kernel="auto") (K1 + K2);
-  7. timings with CUDA events after warmup, each beside its computed bound,
+  7. restart and history at gx1pop (K1 + K3): Model A runs 4 steps with a
+     history stream averaged over 2 steps (cdf1) and npz restarts every 2
+     steps, Model B 2 steps, and Model C continues from B's pointer file
+     for 2 more; C's state must equal A's bit for bit and C's step-4
+     history file A's (both average steps 3 and 4). One cdf1 restart
+     round-trips at full width. It prints the restart write and read
+     costs, history accumulation (CUDA events) and write costs, and the
+     host-clock step with history on and off;
+  8. timings with CUDA events after warmup, each beside its computed bound,
      and the phases of the coupled step.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -78,6 +86,166 @@ class PhaseTimer:
         for name, a, b in self.events:
             out[name] = out.get(name, 0.0) + a.elapsed_time(b)
         return out
+
+
+def _read_nc(path):
+    """(global attributes, dimensions, {variable: (dims, attributes,
+    values)}) of a netCDF-3 file."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "r", mmap=False) as f:
+        return (dict(f._attributes), dict(f.dimensions),
+                {k: (v.dimensions, dict(v._attributes), np.array(v[:]))
+                 for k, v in f.variables.items()})
+
+
+def restart_and_history(C, dev, smi, reset_counters, read_counters) -> dict:
+    """Phase 7: restart and history through K1 + K3 at gx1pop. Files go to
+    cice_tpu_torch/_build/smoke_io/ and are removed at the end."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cice_tpu_torch.io import restart as rst
+    from cice_tpu_torch.io.history import History
+    from cice_tpu_torch.measure import timed_ms
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.state import state_leaves
+
+    root = os.path.join(HERE, "cice_tpu_torch", "_build", "smoke_io")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def cfg_for(name, **over):
+        d = os.path.join(root, name)
+        return C.gx1pop_step().with_overrides(**{
+            "setup.histfreq": ("1", "x", "x", "x", "x"),
+            "setup.histfreq_n": (2, 1, 1, 1, 1),
+            "setup.history_format": "cdf1",
+            "setup.history_dir": os.path.join(d, "history"),
+            "setup.dumpfreq": "1", "setup.dumpfreq_n": 2,
+            "setup.restart_format": "npz",
+            "setup.restart_dir": os.path.join(d, "restart"),
+            "setup.pointer_file": os.path.join(d, "restart",
+                                               "ice.restart_file"),
+            **over})
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def mb(path):
+        return os.path.getsize(path) / 1e6
+
+    def same_state(x, y, what):
+        for i, (a, b) in enumerate(zip(state_leaves(x), state_leaves(y))):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"{what}: leaf_{i} differs")
+
+    try:
+        out = {}
+        # A: 4 uninterrupted steps; B: 2 steps; C: B's restart + 2 steps
+        a = Model(cfg_for("A"), device=dev, enable_history=True)
+        reset_counters()
+        a.run(4)
+        torch.cuda.synchronize()
+        la = read_counters()
+        b = Model(cfg_for("B"), device=dev, enable_history=True)
+        b.run(2)
+        ccfg = cfg_for("C", **{"setup.runtype": "continue",
+                               "setup.pointer_file":
+                                   b.cfg.setup.pointer_file})
+        reset_counters()
+        c = Model(ccfg, device=dev, enable_history=True)
+        c.run(2)
+        torch.cuda.synchronize()
+        lc = read_counters()
+        for what, lau in (("A", la), ("C", lc)):
+            if lau["evp_fused"] < 1 or lau["tracer_fluxes"] < 1:
+                fail(f"a kernel of the restart run {what} was not "
+                     f"launched: {lau}")
+        same_state(c.state, a.state, "restarted run C vs uninterrupted A "
+                   "after 4 steps")
+        if c.calendar != a.calendar:
+            fail(f"calendars differ: {c.calendar} vs {a.calendar}")
+        name = "iceh.1." + a.calendar.timestamp() + ".nc"
+        ha = _read_nc(os.path.join(a.cfg.setup.history_dir, name))
+        hc = _read_nc(os.path.join(ccfg.setup.history_dir, name))
+        if ha[:2] != hc[:2] or list(ha[2]) != list(hc[2]):
+            fail("history files of A and C differ in layout")
+        for k, (dims, attrs, vals) in ha[2].items():
+            cd, ca, cv = hc[2][k]
+            if cd != dims or ca != attrs or not np.array_equal(vals, cv):
+                fail(f"history variable {k} differs between A and C")
+        # the step-4 file averages steps 3 and 4: hours 2 to 4 of the run
+        tb = ha[2]["time_bounds"][2]
+        masked = [v for k, (_d, at, v) in ha[2].items()
+                  if at.get("cell_methods") == b"time: mean"]
+        if not all(np.isfinite(v).all() for v in masked) or \
+                not np.allclose(tb, [[2 / 24, 4 / 24]], rtol=0, atol=1e-12):
+            fail(f"history file of A: non-finite values or time bounds "
+                 f"{tb.tolist()}")
+        print(f"restart and history at gx1pop on {smi}: C (restarted "
+              f"from B's step-2 npz restart) equals A (4 steps) bit for "
+              f"bit in all {len(state_leaves(a.state))} leaves; step-4 "
+              f"history files equal ({len(ha[2])} variables, "
+              f"{len(masked)} averaged over steps 3 and 4); launches A "
+              f"{la}, C {lc}")
+        out["launches"] = {"A": la, "C": lc}
+
+        # restart costs: npz (the driver's dump) and a cdf1 round trip
+        for fmt in ("npz", "cdf1"):
+            d = os.path.join(root, f"rt_{fmt}")
+            ptr = os.path.join(d, "pointer")
+            w_ms, path = host_ms(lambda: rst.write_restart(
+                d, a.state, a.calendar, ptr, fmt=fmt))
+            r_ms, (st, cal) = host_ms(lambda: rst.read_restart(ptr, a.state))
+            same_state(st, a.state, f"{fmt} restart round trip")
+            if cal != a.calendar:
+                fail(f"{fmt} restart round trip: calendar {cal}")
+            out[f"restart_{fmt}"] = dict(write_ms=w_ms, read_ms=r_ms,
+                                         mb=mb(path))
+            print(f"restart {fmt} at gx1pop on {smi}: write {w_ms:.1f} ms, "
+                  f"read {r_ms:.1f} ms (host clock, device copies "
+                  f"included), {mb(path):.1f} MB, round trip exact")
+
+        # history costs on A's last state: accumulation by CUDA events,
+        # the cdf1 write on the host clock
+        h = History(a.cfg, a.grid, directory=os.path.join(root, "h"))
+        acc_ms = timed_ms(lambda: h.accum(a.state, a.flux, a.forcing), 3)
+        w_ms, path = host_ms(lambda: h.write_stream(h.streams[0],
+                                                    a.calendar, "cdf1"))
+        rows = h.streams[0].acc.shape[0]
+        out["history"] = dict(accum_ms=acc_ms, write_ms=w_ms, mb=mb(path),
+                              rows=rows, fields=len(h.fields))
+        print(f"history at gx1pop on {smi}: accum {acc_ms:.3f} ms per step "
+              f"(CUDA events; {len(h.fields)} fields, {rows} rows of "
+              f"{a.grid.shape[0]}x{a.grid.shape[1]}), cdf1 write "
+              f"{w_ms:.1f} ms (host clock), {mb(path):.1f} MB")
+
+        # the coupled step with history on and off, in turns on one model
+        # (a daily stream: no file is due in these 17 hourly steps)
+        m = Model(C.gx1pop_step().with_overrides(**{
+            "setup.histfreq": ("d", "x", "x", "x", "x"),
+            "setup.history_dir": os.path.join(root, "hd")}),
+            device=dev, enable_history=True)
+        hist = m.history
+        m.run(1)
+        steps = {"off": [], "on": []}
+        for label in ("off", "on", "on", "off") * 2:
+            m.history = hist if label == "on" else None
+            ms, _ = host_ms(lambda: m.run(2))
+            steps[label].append(ms / 2)
+        out["step_ms"] = steps
+        print(f"coupled step at gx1pop on {smi}, ms per step (host clock, "
+              f"2 steps each, in the order off on on off off on on off on "
+              f"one model): history off {steps['off']}, on {steps['on']}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -441,6 +609,9 @@ def main() -> int:
         fail(f"a kernel of the 'auto' coupled step was not launched: "
              f"{auto_launches}")
 
+    # ---- restart and history at gx1pop through K1 + K3 -----------------
+    rh = restart_and_history(C, dev, smi, reset_counters, read_counters)
+
     # ---- phase timings on the main path's state -------------------------
     fc = main.forcing
     dyn_ms = timed_ms(lambda: step_dyn_horiz(main.static, grid, main.state,
@@ -519,7 +690,8 @@ def main() -> int:
                        launches={"main": launches, "auto": auto_launches,
                                  "dyn": dyn_launches},
                        freshwater_residual=wres, ridge_passes=rdg["npass"],
-                       transport_checks=tc), f, indent=1)
+                       transport_checks=tc, restart_history=rh), f,
+                  indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,8 +13,11 @@ linear ITD remap, frazil and lateral melt, B-grid EVP, exact incremental
 remapping, ridging, slab ocean) on the gx1 displaced-pole grid
 (`config.gx1pop_step`), driven by `model.driver.Model.step` / `.run`; the
 kernels are the fused EVP subcycles (kernels/evp.py) and the one-pass and
-flux-only transport kernels (kernels/remap.py). `config.gx1pop_dyn` with
-`Model.run_dynamics` runs the dynamics-transport supercycle alone.
+flux-only transport kernels (kernels/remap.py). The Model keeps the
+calendar (calendar.py), writes history (io/history.py) and restarts
+(io/restart.py, files shared with the JAX package) and resumes from them
+with runtype='continue'. `config.gx1pop_dyn` with `Model.run_dynamics`
+runs the dynamics-transport supercycle alone.
 """
 
 from .config import Config, gx1pop_dyn, gx1pop_step

@@ -2,12 +2,15 @@
 CICE_InitMod.F90 `cice_init`, ice_init.F90 `set_state_var`:3266, the loop
 body of CICE_RunMod.F90 `ice_step`).
 
-`Model` owns config, grid, static tables, forcing and the prognostic state
-on one device. `step()` / `run(n)` advance the full coupled step
-(`model_step`) with the diagnostics and aborts at `diagfreq`;
-`run_dynamics(n)` advances only the dynamics-transport-ridging supercycle
-(`step_dyn_transport`) under the data wind stress. The calendar, history,
-restarts, prescribed ice and restoring wait for ROADMAP A2/A7.
+`Model` owns config, grid, static tables, forcing, the calendar and the
+prognostic state on one device. `step()` / `run(n)` advance the full
+coupled step (`model_step`) with the calendar, history accumulation and
+output, the diagnostics and aborts at `diagfreq` (each abort writes an
+early checkpoint first) and restart dumps at `dumpfreq`; `runtype=
+'continue'` resumes from the pointer file. `run_dynamics(n)` advances only
+the dynamics-transport-ridging supercycle (`step_dyn_transport`) under the
+data wind stress. Prescribed ice, restoring, point probes, the background
+writer (ROADMAP A7) and sharded restarts (A8) are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ from typing import Optional
 import torch
 
 from .. import constants as cst
+from ..calendar import Calendar, npt_to_steps
 from ..columns import itd as itd_mod
 from ..columns.thermo_vertical import (bl99_salinity, enthalpy_ice,
                                        enthalpy_snow, melting_temps)
 from ..core.grid import Grid, make_grid
+from ..utils.timers import Timers
 from .flux import zeros_forcing
 from .forcing import default_ocn, get_forcing
 from .state import State, zeros_state
@@ -134,28 +139,47 @@ def set_state_var(cfg, grid: Grid, state: State, Tf) -> State:
 
 
 class Model:
-    """Standalone model instance on one device (cice_init equivalent)."""
+    """Standalone model instance on one device (cice_init + CICE_Run
+    equivalents)."""
 
-    def __init__(self, cfg, grid: Optional[Grid] = None, device="cuda"):
+    def __init__(self, cfg, grid: Optional[Grid] = None, device="cuda",
+                 enable_history: bool = False):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Model(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
         s = cfg.setup
-        if s.runtype == "continue":
+        if s.restart_format == "pio":
             raise NotImplementedError(
-                "restarts are not ported yet (ROADMAP A2: restart and "
-                "history)")
-        if (s.month_init, s.day_init, s.sec_init) != (1, 1, 0) or \
-                s.calendar_type != "noleap" or s.use_leap_years:
+                "restart_format='pio' (sharded restarts) is not ported yet "
+                "(ROADMAP A8: multi-GPU)")
+        if s.io_async:
             raise NotImplementedError(
-                "the calendar is not ported yet (ROADMAP A2): the port "
-                "counts a 365-day year from January 1st")
+                "the background history/restart writer (setup.io_async) is "
+                "not ported yet (ROADMAP A7: forcing files, coupling and "
+                "I/O)")
         if s.prescribed_ice or cfg.forcing.restore_ice or \
                 cfg.forcing.restore_ocn:
             raise NotImplementedError(
                 "prescribed ice and restoring are not ported yet (ROADMAP "
                 "A7)")
+        if s.print_points or s.debug_model:
+            raise NotImplementedError(
+                "print_points and debug_model probes are not ported yet "
+                "(ROADMAP A7)")
+        # use_leap_years / days_per_year resolve to the calendar type
+        # (reference ice_calendar init_calendar consistency checks)
+        cal_type = s.calendar_type
+        if s.use_leap_years and cal_type == "noleap":
+            cal_type = "gregorian"
+        expected = {"noleap": 365, "gregorian": 365, "360day": 360}[cal_type]
+        if s.days_per_year != expected:
+            raise ValueError(
+                f"days_per_year={s.days_per_year} inconsistent with "
+                f"calendar_type='{cal_type}' (expected {expected})")
+        self.calendar = Calendar(
+            calendar_type=cal_type, year=s.year_init, month=s.month_init,
+            day=s.day_init, sec=s.sec_init, year_init=s.year_init)
         self.cfg = cfg
         self.device = device
         self.grid = grid if grid is not None else make_grid(cfg, device)
@@ -167,59 +191,106 @@ class Model:
             self.forcing = self.forcing.replace(Tair=warm, potT=warm)
         self.forcing = default_ocn(self.grid, cfg, self.forcing)
         self.state = zeros_state(cfg, self.grid)
-        if cfg.setup.ice_ic == "default":
+        if s.runtype == "continue":
+            from ..io.restart import read_restart
+            self.state, self.calendar = read_restart(s.pointer_file,
+                                                     self.state)
+        elif s.ice_ic == "default":
             self.state = set_state_var(cfg, self.grid, self.state,
                                        self.forcing.Tf)
-        self.istep = 0
+        self.timers = Timers().init_standard()
         self.flux = None
+        self.io_writer = None       # the background writer waits for A7
+        self.history = None
+        if enable_history:
+            from ..io.history import History
+            self.history = History(cfg, self.grid)
         self.dyn_diags: dict = {}
         self.tchecks: dict = {}
         self.diag_log: list = []
 
     @property
-    def elapsed_seconds(self) -> float:
-        return self.istep * self.cfg.setup.dt
+    def istep(self) -> int:
+        return self.calendar.istep
+
+    @property
+    def elapsed_seconds(self) -> int:
+        return self.calendar.elapsed_seconds
 
     @property
     def yday(self) -> float:
-        """Fractional day of a 365-day year (1-based)."""
-        return 1.0 + (self.elapsed_seconds % (365.0 * cst.secday)) / \
-            cst.secday
+        """Fractional day of the year (1-based)."""
+        return self.calendar.fyday
 
     @property
     def year(self) -> int:
-        return self.cfg.setup.year_init + \
-            int(self.elapsed_seconds // (365.0 * cst.secday))
+        return self.calendar.year
+
+    def _forcing(self):
+        """The forcing at the calendar's instant."""
+        cal = self.calendar
+        return get_forcing(self.cfg, self.grid, float(cal.elapsed_seconds),
+                           cal.fyday, self.state.aice, self.forcing,
+                           year=cal.year,
+                           sec_of_year=(cal.fyday - 1.0) * cst.secday)
 
     def step(self, timer=None) -> State:
-        """One full coupled step: forcing, `model_step`, the yearly onset
-        reset and, every `diagfreq` steps, the diagnostics with the
-        freshwater-budget, non-finite-state and transport-check aborts.
-        `timer` is handed to `model_step`."""
+        """One full coupled step: forcing, `model_step`, the calendar and
+        the yearly onset reset, history accumulation and output, every
+        `diagfreq` steps the diagnostics with the freshwater-budget,
+        non-finite-state and transport-check aborts, and the restart dump
+        at `dumpfreq`. `timer` is handed to `model_step`."""
         cfg = self.cfg
         dt = cfg.setup.dt
+        self.timers.start("Total")
         state_pre = self.state
-        fc = get_forcing(cfg, self.grid, self.elapsed_seconds, self.yday,
-                         self.state.aice, self.forcing)
-        self.forcing = fc
-        self.state, self.flux = model_step(self.static, self.grid,
-                                           self.state, fc, dt, timer=timer)
+        with self.timers("Forcing"):
+            self.forcing = self._forcing()
+        with self.timers("TimeLoop"):
+            self.state, self.flux = model_step(self.static, self.grid,
+                                               self.state, self.forcing, dt,
+                                               timer=timer)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.tchecks = self.flux.transport_checks
-        prev_year = self.year
-        self.istep += 1
-        if self.year != prev_year:
+        prev_year = self.calendar.year
+        self.calendar = self.calendar.advance(dt)
+        if self.calendar.year != prev_year:
+            # yearly reset of melt/freeze onset diagnostics (reference
+            # resets mlt_onset/frz_onset with the annual history cycle)
             z = torch.zeros_like(self.state.mlt_onset)
             self.state = self.state.replace(mlt_onset=z, frz_onset=z)
-        if cfg.setup.diagfreq and self.istep % cfg.setup.diagfreq == 0:
+
+        # analysis / IO phases (reference ice_step tail, CICE_RunMod:375-420)
+        self.timers.start("History")
+        if self.history is not None:
+            self.history.accum(self.state, self.flux, self.forcing)
+            self.history.maybe_write(self.calendar,
+                                     fmt=cfg.setup.history_format)
+        if cfg.setup.diagfreq and \
+                self.calendar.istep % cfg.setup.diagfreq == 0:
             self.diag_log.append(self._diagnose(state_pre))
+        if self.calendar.is_boundary(cfg.setup.dumpfreq,
+                                     cfg.setup.dumpfreq_n, dt):
+            self.write_restart()
+        self.timers.stop("History")
+        self.timers.stop("Total")
         return self.state
 
+    def _abort(self, exc: Exception):
+        """Write an early checkpoint of the offending state, then raise."""
+        self.write_restart()
+        self.flush_io()
+        raise exc
+
     def _diagnose(self, state_pre: State) -> dict:
-        """The diagfreq record; raises on a violated conservation check."""
+        """The diagfreq record; on a violated conservation check it writes
+        an early checkpoint and raises."""
         from .diagnostics import (check_state, hemispheric_budgets,
                                   runtime_diags, total_energy,
                                   total_water_mass)
         cfg = self.cfg
+        istep = self.calendar.istep
         rec = {k: float(v)
                for k, v in runtime_diags(self.grid, self.state).items()}
         if not cfg.setup.conserv_check:
@@ -235,13 +306,14 @@ class Model:
         # bookkeeping term); 1% catches any genuinely lost budget term
         wscale = max(abs(rec["bud_dM"]), abs(rec["bud_water_in"]), 1.0)
         if abs(rec["bud_water_residual"]) > 1e-2 * wscale:
-            raise RuntimeError(
-                f"freshwater budget closure violated at step {self.istep}: "
+            self._abort(RuntimeError(
+                f"freshwater budget closure violated at step {istep}: "
                 f"residual {rec['bud_water_residual']:.3e} kg vs budget "
-                f"{wscale:.3e} kg")
+                f"{wscale:.3e} kg (early checkpoint written)"))
         if bool(check_state(self.state)["nonfinite"]):
-            raise FloatingPointError(
-                f"non-finite state at step {self.istep}")
+            self._abort(FloatingPointError(
+                f"non-finite state at step {istep} (early checkpoint "
+                "written)"))
         tc = self.flux.transport_checks
         if tc:
             tol = 1e-9 if self.state.aicen.dtype == torch.float64 else 1e-4
@@ -256,28 +328,51 @@ class Model:
             if cons > tol:
                 bad.append(f"global conservation error {cons:.3e}")
             if bad:
-                raise RuntimeError(f"transport check failed at step "
-                                   f"{self.istep}: {'; '.join(bad)}")
+                self._abort(RuntimeError(
+                    f"transport check failed at step {istep}: "
+                    f"{'; '.join(bad)} (early checkpoint written)"))
         return rec
 
-    def run(self, n: int = 1, timer=None) -> State:
-        """Advance n full coupled steps."""
+    def write_restart(self) -> str:
+        """Dump the state and calendar (and update the pointer file)."""
+        from ..io.restart import write_restart
+        s = self.cfg.setup
+        return write_restart(s.restart_dir, self.state, self.calendar,
+                             s.pointer_file, prefix=s.restart_file,
+                             fmt=s.restart_format)
+
+    def flush_io(self) -> int:
+        """Durability barrier for the background writer; every write of
+        this port is synchronous (the writer waits for ROADMAP A7), so
+        there is nothing to wait for."""
+        return 0
+
+    def run(self, nsteps: Optional[int] = None, timer=None) -> State:
+        """Advance `nsteps` full coupled steps (default: the run length
+        `setup.npt` in `setup.npt_unit`), then write the final restart if
+        `setup.dump_last`."""
+        s = self.cfg.setup
+        n = nsteps if nsteps is not None else npt_to_steps(
+            s.npt, s.npt_unit, s.dt, self.calendar)
         for _ in range(n):
             self.step(timer=timer)
+        if s.dump_last:
+            self.write_restart()
+        self.flush_io()
         return self.state
 
     def run_dynamics(self, n: int = 1) -> State:
         """Advance n thermo steps of the dynamics-transport-ridging
         supercycle alone, under the data wind stress of the forcing
-        (`strax`/`stray`), with the forcing updated each step."""
+        (`strax`/`stray`), with the forcing and the calendar updated each
+        step."""
         cfg = self.cfg
         dt = cfg.setup.dt
         for _ in range(n):
-            fc = get_forcing(cfg, self.grid, self.elapsed_seconds, self.yday,
-                             self.state.aice, self.forcing)
+            fc = self._forcing()
             self.forcing = fc
             self.state, self.dyn_diags, self.tchecks = step_dyn_transport(
                 self.static, self.grid, self.state, fc, fc.strax, fc.stray,
                 dt)
-            self.istep += 1
+            self.calendar = self.calendar.advance(dt)
         return self.state

@@ -62,8 +62,17 @@ def default_ocn(grid, cfg, fc: Forcing) -> Forcing:
 
 
 def get_forcing(cfg, grid, timesecs: float, yday: float, aice,
-                fc: Forcing | None = None) -> Forcing:
-    """Build/update the Forcing for the current time (analytic modes)."""
+                fc: Forcing | None = None, year: int | None = None,
+                sec_of_year: float | None = None) -> Forcing:
+    """Build/update the Forcing for the current time (analytic modes).
+    `year`/`sec_of_year` from the model Calendar address the file datasets
+    (leap-aware record addressing; ROADMAP A7); without them a noleap
+    reconstruction from `timesecs` applies. The analytic modes ported here
+    do not read them."""
+    if year is None:
+        year = cfg.setup.year_init + int(timesecs // (365.0 * cst.secday))
+    if sec_of_year is None:
+        sec_of_year = timesecs % (365.0 * cst.secday)
     if fc is None:
         fc = zeros_forcing(grid.shape, cfg.np_dtype, grid.device)
         fc = default_ocn(grid, cfg, fc)

@@ -1,7 +1,8 @@
 """Prognostic model state (PyTorch port of cice_tpu/model/state.py).
 
 One dataclass of tensors holds the full prognostic state; tracers are a
-name -> tensor dict driven by the tracer registry. Layout: grid dims last,
+name -> tensor dict driven by the tracer registry. `state_leaves` gives its
+tensors in the order restart files number them. Layout: grid dims last,
 (..., ny, nx); categories lead, (ncat, ny, nx); layers between,
 (ncat, nlyr, ny, nx).
 """
@@ -191,3 +192,36 @@ def zeros_state(cfg, grid) -> State:
         iceUmask=torch.zeros((ny, nx), dtype=torch.bool, device=grid.device),
         mlt_onset=z2(), frz_onset=z2(),
     )
+
+
+def state_leaves(state: State) -> list:
+    """The state's tensors in the order `jax.tree.flatten` gives the JAX
+    package's State (a registered dataclass): the fields in declaration
+    order, the `trcrn` dict in sorted key order (capitals first). Restart
+    files of both packages number their leaves so."""
+    out = []
+    for f in dataclasses.fields(State):
+        v = getattr(state, f.name)
+        if f.name == "trcrn":
+            out += [v[k] for k in sorted(v)]
+        else:
+            out.append(v)
+    return out
+
+
+def state_from_leaves(template: State, leaves) -> State:
+    """Inverse of `state_leaves`: a State with `template`'s tracers (in the
+    template's key order) holding `leaves`."""
+    leaves = list(leaves)
+    n = len(dataclasses.fields(State)) - 1 + len(template.trcrn)
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a state of {n}")
+    it = iter(leaves)
+    kw = {}
+    for f in dataclasses.fields(State):
+        if f.name == "trcrn":
+            got = {k: next(it) for k in sorted(template.trcrn)}
+            kw["trcrn"] = {k: got[k] for k in template.trcrn}
+        else:
+            kw[f.name] = next(it)
+    return State(**kw)

@@ -360,7 +360,7 @@ def resolve_remap_kernel(cfg, grid: Grid, dtype: torch.dtype) -> str:
     """The transport engine for remap_kernel='auto': the one-pass CUDA
     kernel (K2, 'fused_full') on a CUDA device with f32 state and neither
     tripole nor y-cyclic boundaries, else the plain path (the JAX
-    package's 'xla'). One difference from cice_tpu/model/step.py:806-826:
+    package's 'xla'). Unlike the JAX package (its model/step.py:806-826),
     there is no 'fused_pallas' fallback for tables too large for the
     one-pass kernel. The JAX package needs it where the TPU's VMEM runs
     out; K2 holds a chunk of its schedule in shared memory, not the table,
