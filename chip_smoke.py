@@ -35,7 +35,26 @@ per source, started together), then:
      costs, history accumulation (CUDA events) and write costs, and the
      host-clock step with history on and off;
   8. timings with CUDA events after warmup, each beside its computed bound,
-     and the phases of the coupled step.
+     and the phases of the coupled step;
+  9. file forcing, the tripole seam and the baseline runner, driven through
+     the port CLI's functions (`cice_tpu_torch.cli.main`) on the gx3/gx1/
+     tx1 fixtures it writes. One full-width gx1pop_step on a y-cyclic
+     grid raises naming ROADMAP A9 (no kernel takes that grid, and on the
+     card nothing stands in for one) and, with the plain engines named,
+     steps with no launch; tx1pop,evp1d raises the same way on the tripole
+     grid. Then gx1pop,evp1d for 5 days (120 steps, JRA55 3-hourly
+     forcing, clim ocean, daily history and npz restarts) and gx3pop,evp1d
+     for 5 days, each through K1 + K2 with 120 launches of each; tx1pop
+     for 1 day with the plain EVP loop and the plain transport named
+     (evp_algorithm='standard_2d', remap_kernel='xla'), no kernel
+     launched. Before it, the fold's halo on the card is
+     checked against the CPU. Each run must pass the baseline oracle
+     (finite vice, aice <= 1, extent in both hemispheres) and a clean
+     `check_state`; it prints the comparison with baselines/r05 (deltas at
+     rtol 1e-3, the largest relative delta per key), host ms per step with
+     and without the steps that write files, the forcing's ms per step and
+     per record read, and the history and restart ms per file. Files go to
+     cice_tpu_torch/_build/smoke_baseline/ and are removed.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -244,6 +263,215 @@ def restart_and_history(C, dev, smi, reset_counters, read_counters) -> dict:
               f"2 steps each, in the order off on on off off on on off on "
               f"one model): history off {steps['off']}, on {steps['on']}")
         return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def halo_on_the_card(grid, smi) -> int:
+    """The fold's ghost rows on the card against the CPU: a field mirrored
+    about the fold, shifted through every location, type and offset of a
+    two-row halo, must come out bit for bit the same on both."""
+    import torch
+
+    from cice_tpu_torch.core.halo import shift
+    ny, nx = grid.shape
+    g = torch.Generator().manual_seed(6)
+    f = torch.rand((2, ny, nx), generator=g, dtype=torch.float64)
+    f = (0.5 * (f + f.flip(-1))).to(grid.dtype)
+    fd = f.to(grid.device)
+    n = 0
+    for loc in range(1, 5):
+        for ftype in range(1, 4):
+            for dj in (-2, -1, 1, 2):
+                for di in (-1, 0, 1):
+                    a = shift(fd, dj, di, bc=grid.bc, loc=loc, ftype=ftype)
+                    b = shift(f, dj, di, bc=grid.bc, loc=loc, ftype=ftype)
+                    if not torch.equal(a.cpu(), b):
+                        fail(f"halo {grid.bc} loc {loc} ftype {ftype} "
+                             f"({dj}, {di}): card and CPU differ")
+                    n += 1
+    print(f"halo of {grid.bc} on {ny}x{nx} on {smi}: {n} shifts of a "
+          "fold-symmetric field equal on the card and the CPU")
+    return n
+
+
+def plain_evp_on(m, smi) -> float:
+    """ms by CUDA events of one plain `evp_solve` (the engine a tripole run
+    names) on the model's own grid and subcycle count, on
+    `measure.evp_problem`'s inputs."""
+    from cice_tpu_torch.dynamics.evp import evp_solve
+    from cice_tpu_torch.measure import evp_problem, timed_ms
+    args, kw = evp_problem(m.grid, m.cfg.dynamics, m.cfg.setup.dt,
+                           m.grid.device)
+    ms = timed_ms(lambda: evp_solve(*args, **kw), 2)
+    ny, nx = m.grid.shape
+    print(f"plain evp_solve on the {ny}x{nx} {m.grid.bc.ns} grid "
+          f"(ndte={m.cfg.dynamics.ndte}) on {smi}: {ms:.1f} ms per solve "
+          "(CUDA events, 2 after 1 warmup)")
+    return ms
+
+
+def baseline_runs(dev, smi, reset_counters, read_counters) -> dict:
+    """Phase 9: file forcing, the tripole seam and the baseline runner,
+    through the port CLI's functions. Files go to
+    cice_tpu_torch/_build/smoke_baseline/ and are removed."""
+    import argparse
+    import shutil
+    import statistics
+
+    import torch
+
+    from cice_tpu_torch.cli import main as cli
+    from cice_tpu_torch.model.diagnostics import check_state
+
+    root = os.path.join(HERE, "cice_tpu_torch", "_build", "smoke_baseline")
+    r05 = os.path.join(HERE, "baselines", "r05")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    from cice_tpu_torch.io.fixtures import ensure_baseline_fixtures
+    ensure_baseline_fixtures()
+    fix_s = time.perf_counter() - t0
+    print(f"baseline fixtures (gx3, gx1, tx1 grids; NCAR, JRA55, ocean "
+          f"climatology) ready in {fix_s:.1f} s")
+
+    def cfg_for(opts, label, sets):
+        d = os.path.join(root, label)
+        sets = list(sets) + [
+            f"setup.history_dir={d}/history/",
+            f"setup.restart_dir={d}/restart/",
+            f"setup.pointer_file={d}/restart/ice.restart_file"]
+        return cli.build_config(argparse.Namespace(opts=opts, set=sets))
+
+    def run(opts, label, sets, expect):
+        m = cli.baseline_model(cfg_for(opts, label, sets), dev)
+        plain_evp_ms = None
+        if label == "tx1pop":
+            halo_on_the_card(m.grid, smi)
+            plain_evp_ms = plain_evp_on(m, smi)
+        step_ms, wrote, files = [], [], {"history": [], "restart": []}
+        step, write_restart = m.step, m.write_restart
+        write_stream = m.history.write_stream
+
+        def timed(kind, fn):
+            def call(*a, **k):
+                t = time.perf_counter()
+                path = fn(*a, **k)
+                files[kind].append(((time.perf_counter() - t) * 1e3,
+                                    os.path.getsize(path) / 1e6))
+                return path
+            return call
+
+        def timed_step(*a, **k):
+            n = len(files["history"]) + len(files["restart"])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            wrote.append(len(files["history"]) + len(files["restart"]) > n)
+            return out
+
+        m.write_restart = timed("restart", write_restart)
+        m.history.write_stream = timed("history", write_stream)
+        m.step = timed_step
+        reset_counters()
+        t = time.perf_counter()
+        m.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_counters()
+        res = cli.finish_baseline(m, label, os.path.join(root, "archive"),
+                                  r05)
+        cs = {k: float(v) for k, v in check_state(m.state).items()}
+        nsteps = len(step_ms)
+        quiet = [x for x, w in zip(step_ms, wrote) if not w]
+        busy = [x for x, w in zip(step_ms, wrote) if w]
+        forcing_ms = m.timers.get("Forcing") * 1e3 / nsteps
+        reads = {k: (ds.records_read, ds.read_seconds * 1e3 /
+                     max(ds.records_read, 1))
+                 for k, ds in m.datasets.items()}
+        per_file = {k: (statistics.mean(x for x, _ in v),
+                        statistics.mean(mb for _, mb in v), len(v))
+                    for k, v in files.items() if v}
+        errs, rel = res["deltas"], res["largest_rel"] or {}
+        print(f"baseline {opts} ({label}) on {smi}: {nsteps} steps in "
+              f"{wall:.1f} s, launches {launches}; ms per step (host "
+              f"clock): {statistics.mean(step_ms):.1f} mean, "
+              f"{statistics.median(quiet):.1f} median of the "
+              f"{len(quiet)} steps that write no file"
+              + (f", {statistics.mean(busy):.1f} mean of the {len(busy)} "
+                 "that do" if busy else "")
+              + f"; forcing {forcing_ms:.2f} ms per step; records read "
+              f"(count, ms each): {reads}; files (ms, MB, count): "
+              f"{per_file}; check_state {cs}; oracle "
+              f"{'PASS' if res['ok'] else 'FAIL'}")
+        print(f"  r05 comparison of {label}: "
+              + ("no committed baseline" if errs is None else
+                 f"{len(errs)} deltas at rtol {cli.BCMP_RTOL}, largest "
+                 "relative delta per key "
+                 + json.dumps({k: float(f"{v:.3e}") for k, v in
+                               rel.items()})))
+        if not res["ok"]:
+            fail(f"baseline {label}: the oracle failed ({res['final']})")
+        if cs["unstable"] or cs["nonfinite"]:
+            fail(f"baseline {label}: check_state {cs}")
+        if launches != expect:
+            fail(f"baseline {label}: launches {launches}, expected {expect}")
+        shutil.rmtree(os.path.join(root, label), ignore_errors=True)
+        return dict(steps=nsteps, wall_s=wall, launches=launches,
+                    step_ms_mean=statistics.mean(step_ms),
+                    step_ms_quiet_median=statistics.median(quiet),
+                    step_ms_files_mean=statistics.mean(busy) if busy
+                    else None, forcing_ms=forcing_ms, reads=reads,
+                    files=per_file, ndeltas=None if errs is None
+                    else len(errs), largest_rel=rel,
+                    plain_evp_ms=plain_evp_ms,
+                    final=res["final"])
+
+    k12 = {"evp_fused": 120, "transport_fused": 120, "tracer_fluxes": 0}
+    none = {"evp_fused": 0, "transport_fused": 0, "tracer_fluxes": 0}
+    def raises_a9(m, what):
+        try:
+            m.step()
+        except NotImplementedError as e:
+            if "ROADMAP A9" not in str(e):
+                fail(f"{what}: raised without naming ROADMAP A9: {e}")
+            print(f"{what}: raises on the card, as it must: {e}")
+        else:
+            fail(f"{what}: stepped on the card although no kernel takes "
+                 "the grid")
+
+    try:
+        # gx1pop_step on a y-cyclic grid: with K1 and K3 asked for, the step
+        # raises; with the plain engines named, it runs and launches nothing
+        from cice_tpu_torch import config as C
+        from cice_tpu_torch.model.driver import Model
+        ycyc = {"grid.ns_boundary_type": "cyclic"}
+        raises_a9(Model(C.gx1pop_step().with_overrides(**ycyc), device=dev),
+                  "gx1pop_step on a y-cyclic grid")
+        m = Model(C.gx1pop_step().with_overrides(**ycyc, **{
+            "dynamics.evp_algorithm": "standard_2d",
+            "dynamics.remap_kernel": "xla"}), device=dev)
+        reset_counters()
+        m.step()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        finite = bool(torch.isfinite(m.state.aicen).all())
+        print(f"gx1pop_step on a y-cyclic grid with the plain engines named: "
+              f"1 step, launches {launches}, finite {finite}")
+        if launches != none or not finite:
+            fail("gx1pop_step on a y-cyclic grid on the plain engines")
+        del m
+        raises_a9(cli.baseline_model(cfg_for("tx1pop,evp1d", "tx1pop_k1",
+                                             ["setup.npt=1"]), dev),
+                  "tx1pop,evp1d (K1 on the tripole grid)")
+        return {
+            "gx1pop": run("gx1pop,evp1d", "gx1pop", [], k12),
+            "gx3pop": run("gx3pop,evp1d", "gx3pop", [], k12),
+            "tx1pop": run("tx1pop", "tx1pop",
+                          ["setup.npt=1", "dynamics.evp_algorithm=standard_2d",
+                           "dynamics.remap_kernel=xla"], none),
+            "fixtures_s": fix_s}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -639,20 +867,28 @@ def main() -> int:
           "(ms per step): " + ", ".join(f"{k} {v:.3f}"
                                         for k, v in phase_ms.items()))
 
+    # ---- file forcing, tripole and the baseline runner ------------------
+    base = baseline_runs(dev, smi, reset_counters, read_counters)
+    on_base = {k: {r: base[r]["launches"][k]
+                   for r in ("gx1pop", "gx3pop", "tx1pop")}
+               for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+
     results = [
         {"name": "evp_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/evp_fused.cu",
          "replaces": "cice_tpu/kernels/evp_pallas.py:184",
          "launches": launches["evp_fused"], "max_abs_err": k1_abs,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "library_ms": None,
+         "launches_baseline": on_base["evp_fused"]},
         {"name": "transport_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/transport_fused.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:653",
          "launches": auto_launches["transport_fused"],
          "max_abs_err": k2_abs,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None,
+         "launches_baseline": on_base["transport_fused"]},
         {"name": "tracer_fluxes", "route": "cuda",
          "source": "cice_tpu_torch/csrc/tracer_fluxes.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:261",
@@ -661,7 +897,8 @@ def main() -> int:
          "bound_by": k3_by, "library_ms": None,
          "ms_dense": k3["dense"]["ms"],
          "bound_ms_dense": k3["dense"]["bound"][0],
-         "bound_ms_every_candidate": k3_all_bound},
+         "bound_ms_every_candidate": k3_all_bound,
+         "launches_baseline": on_base["tracer_fluxes"]},
     ]
     out = {"kernels": results}
     # ridging passes on the main path's last state and deformation
@@ -690,7 +927,8 @@ def main() -> int:
                        launches={"main": launches, "auto": auto_launches,
                                  "dyn": dyn_launches},
                        freshwater_residual=wres, ridge_passes=rdg["npass"],
-                       transport_checks=tc, restart_history=rh), f,
+                       transport_checks=tc, restart_history=rh,
+                       baseline=base), f,
                   indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,16 @@ calendar (calendar.py), writes history (io/history.py) and restarts
 (io/restart.py, files shared with the JAX package) and resumes from them
 with runtype='continue'. `config.gx1pop_dyn` with `Model.run_dynamics`
 runs the dynamics-transport supercycle alone.
+
+Forcing: analytic (box2001, uniform, calm, seasonal) and file datasets
+(NCAR, JRA55, monthly, HadGEM, oned, ISPOL atmospheres; climatology and
+HYCOM oceans; io/forcing_files.py). Grids: rectangular, lat-lon, the
+file-less tripole and displaced-pole stand-ins and POP binaries, with
+cyclic, open, closed and tripole (U- or T-fold) boundaries. The CLI
+(`python -m cice_tpu_torch.cli run|test`) runs the reference's option sets,
+among them the gx3pop, gx1pop and tx1pop baselines on fixtures it writes
+(io/fixtures.py). Where a kernel cannot take a grid (tripole, y-cyclic) or
+a dtype, its dispatcher warns and runs the plain version.
 """
 
 from .config import Config, gx1pop_dyn, gx1pop_step

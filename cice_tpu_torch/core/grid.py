@@ -5,6 +5,11 @@ The metric derivation `_derive` runs on the host in float64 NumPy, exactly
 as the JAX package does; the resulting `Grid` is a dataclass of tensors on
 one device. Staggering: T(i,j) cell center; U(i,j) NE corner of T(i,j);
 N(i,j) north face; E(i,j) east face.
+
+Constructors (`make_grid`): `rect` (reference rectgrid), `latlon`
+(latlongrid), the file-less `tripole` and `displaced_pole` stand-ins
+(spherical metrics and the idealized land mask), and POP binary grid files
+(`pop_bin`, io/grids.py), displaced-pole or tripole.
 """
 
 from __future__ import annotations
@@ -337,36 +342,76 @@ def rectgrid(nx: int, ny: int, dxrect_cm: float = 30.0e5,
 
 def from_arrays(ULAT, ULON, HTN, HTE, kmt, bc: BC, bathymetry=None,
                 angle=None, dtype=torch.float32, device="cuda") -> Grid:
-    """Grid from POP-format primary arrays (gx3/gx1 path)."""
+    """Grid from POP-format primary arrays (gx3/gx1/tx1 path)."""
     hm = (np.asarray(kmt) > 0.5).astype(np.float64)
     return _derive(ULAT, ULON, HTN, HTE, hm, bc, bathymetry=bathymetry,
                    angle=angle, dtype=dtype, device=device)
+
+
+def latlon_grid(nx: int, ny: int, lat_min: float = -78.0,
+                lat_max: float = 88.0, kmt=None,
+                bc: BC = BC(ew="cyclic", ns="open"), dtype=torch.float32,
+                device="cuda") -> Grid:
+    """Regular spherical grid spanning the globe in longitude (reference
+    `latlongrid` ice_grid.F90:1418, uniform spacing)."""
+    dlon = 2.0 * np.pi / nx
+    lat_edges = np.linspace(lat_min, lat_max, ny + 1) * cst.deg_to_rad
+    ULAT = np.broadcast_to(lat_edges[1:, None], (ny, nx)).copy()
+    ULON = np.broadcast_to((dlon * (np.arange(nx) + 1.0))[None, :],
+                           (ny, nx)).copy()
+    HTN = cst.radius * dlon * np.cos(ULAT)
+    dlat = np.diff(lat_edges)
+    HTE = np.broadcast_to((cst.radius * dlat)[:, None], (ny, nx)).copy()
+    if kmt is None:
+        kmt = np.ones((ny, nx))
+        kmt[0, :] = 0.0
+        kmt[-1, :] = 0.0
+    return _derive(ULAT, ULON, HTN, HTE, kmt, bc, dtype=dtype, device=device)
 
 
 def make_grid(cfg, device="cuda") -> Grid:
     """Construct the grid described by a Config (grid_nml analogue)."""
     g = cfg.grid
     bc = BC(ew=g.ew_boundary_type, ns=g.ns_boundary_type)
-    if bc.tripole or g.grid_format == "tripole":
-        raise NotImplementedError(
-            "tripole grids are not ported yet (ROADMAP: tripole and "
-            "y-cyclic boundaries)")
     if g.grid_format == "rect":
         return rectgrid(g.nx_global, g.ny_global, g.dxrect, g.dyrect,
                         g.kmt_type, bc, g.lonrefrect, g.latrefrect,
                         dxscale=g.dxscale if g.scale_dxdy else 1.0,
                         dyscale=g.dyscale if g.scale_dxdy else 1.0,
                         dtype=cfg.np_dtype, device=device)
+    if g.grid_format == "latlon":
+        return latlon_grid(g.nx_global, g.ny_global, bc=bc,
+                           dtype=cfg.np_dtype, device=device)
     if g.grid_format in ("pop_bin", "pop_nc", "nc") or (
             g.grid_file and g.grid_format not in ("rect", "latlon",
                                                   "displaced_pole")):
         from ..io.grids import load_grid_files
         return load_grid_files(cfg, device=device)
-    if g.grid_format in ("latlon", "displaced_pole"):
-        raise NotImplementedError(
-            f"grid_format={g.grid_format!r} (the analytic grids used without "
-            "grid files) is not ported yet (ROADMAP: forcing files, coupling "
-            "and I/O); use 'pop_bin' or 'rect'")
+    from .landmask import idealized_world_kmt
+    if g.grid_format == "tripole":
+        # synthetic tripole: spherical metrics (mirror-symmetric across the
+        # northern seam, since dx depends only on j) with the fold's halo
+        if g.nx_global % 2:
+            raise ValueError("tripole grids need even nx_global (fold pairs "
+                             "i <-> nx-1-i; ug_implementation.rst:279)")
+        ns = g.ns_boundary_type
+        bc = BC(ew="cyclic",
+                ns=ns if ns in ("tripole", "tripoleT") else "tripole")
+        kmt = (None if g.kmt_type == "none"
+               else idealized_world_kmt(g.nx_global, g.ny_global))
+        if kmt is None:
+            kmt = np.ones((g.ny_global, g.nx_global))
+            kmt[0, :] = 0.0       # southern land rim; the north is the seam
+        return latlon_grid(g.nx_global, g.ny_global, lat_min=-78.0,
+                           lat_max=89.0, kmt=kmt, bc=bc, dtype=cfg.np_dtype,
+                           device=device)
+    if g.grid_format == "displaced_pole":
+        # the gx domain without its grid files: a spherical grid of the
+        # same dimensions and an idealized land mask
+        kmt = idealized_world_kmt(g.nx_global, g.ny_global)
+        return latlon_grid(g.nx_global, g.ny_global, lat_min=-78.0,
+                           lat_max=87.0, kmt=kmt, bc=bc, dtype=cfg.np_dtype,
+                           device=device)
     raise ValueError(f"unknown grid_format {g.grid_format}")
 
 

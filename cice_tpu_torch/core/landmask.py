@@ -1,7 +1,7 @@
-"""Idealized world land mask (copy of the `continents_mask` part of
-cice_tpu/core/landmask.py), used by the POP grid fixtures: the production
-gx grids ship as external files, so the fixtures synthesize a plausible
-continental mask at true cell coordinates.
+"""Idealized world land mask (copy of cice_tpu/core/landmask.py), used by
+the POP grid fixtures and by the file-less `displaced_pole` and `tripole`
+grid formats: the production gx/tx grids ship as external files, so a
+plausible continental mask is synthesized at true cell coordinates.
 """
 
 from __future__ import annotations
@@ -46,4 +46,16 @@ def continents_mask(lat: np.ndarray, lon: np.ndarray) -> np.ndarray:
     # Bering-strait-like gap stays open (lon ~ 190, lat ~ 66): carve channel
     ber = (lon > 185.0) & (lon < 195.0) & (lat > 50.0)
     ocean[ber] = 1.0
+    return ocean
+
+
+def idealized_world_kmt(nx: int, ny: int, lat_min: float = -78.0,
+                        lat_max: float = 87.0) -> np.ndarray:
+    """Continents mask sampled on a regular lat-lon index grid, with the
+    top and bottom rows closed."""
+    lat = np.linspace(lat_min, lat_max, ny)[:, None] * np.ones((1, nx))
+    lon = np.ones((ny, 1)) * ((np.arange(nx) + 0.5) / nx * 360.0)[None, :]
+    ocean = continents_mask(lat, lon)
+    ocean[0, :] = 0.0
+    ocean[-1, :] = 0.0
     return ocean

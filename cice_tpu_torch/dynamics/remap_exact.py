@@ -548,9 +548,11 @@ def _family_fluxes(grid: Grid, moments, offsets, mc, mx, my, tc, tx, ty,
     moments: (6, 10, ny, nx) per-candidate moments (CANDS order);
     offsets: per-candidate (dj, di) shift taking edge (j, i) to the donor.
     Returns (mflx (ncat+1, ...), mtflx (ncat, NT, ...)) in physical
-    units. Every contribution is linear in the donor fields and the ghost
-    fill is zero, so the moments are back-shifted to the donor and the
-    single result forward-shifted to the edge."""
+    units. Every contribution is linear in the donor fields and, away from
+    a tripole fold, the ghost fill is zero, so the moments are back-shifted
+    to the donor and the single result forward-shifted to the edge. A fold
+    mirrors the donors but not the moments, so there the donor fields are
+    shifted directly, the gradients as vectors (their sign flips)."""
     bc = grid.bc
     ta = _TableArrays(table)
     dt_, dev = mc.dtype, mc.device
@@ -564,21 +566,35 @@ def _family_fluxes(grid: Grid, moments, offsets, mc, mx, my, tc, tx, ty,
         tcp, txp, typ = tc[:, par], tx[:, par], ty[:, par]
         tcg, txg, tyg = tc[:, gpar], tx[:, gpar], ty[:, gpar]
 
+    direct = bc.tripole
     mflx = 0.0
     mtflx = 0.0
     for c, (dj, di) in enumerate(offsets):
-        M = _shs(moments[c], -dj, -di, bc)
+        if direct:
+            M = moments[c]
+            S_s = lambda a: _shs(a, dj, di, bc)
+            S_v = lambda a: shift(a, dj, di, bc=bc, loc=FIELD_LOC_CENTER,
+                                  ftype=FIELD_TYPE_VECTOR)
+            post = lambda u: u
+        else:
+            M = _shs(moments[c], -dj, -di, bc)
+            S_s = S_v = lambda a: a
+            post = lambda u: _shs(u, dj, di, bc)
+        mc_c, mx_c, my_c = S_s(mc), S_v(mx), S_v(my)
 
         def mom(p, q):
             return M[MIDX[(p, q)]]
 
-        msum = mc * mom(0, 0) + mx * mom(1, 0) + my * mom(0, 1)
-        mflx = mflx + _shs(msum, dj, di, bc)
+        msum = mc_c * mom(0, 0) + mx_c * mom(1, 0) + my_c * mom(0, 1)
+        mflx = mflx + post(msum)
 
         if tc is not None:
-            mi = mc[1:][:, None]
-            mxi = mx[1:][:, None]
-            myi = my[1:][:, None]
+            tc_c, tx_c, ty_c = S_s(tc), S_v(tx), S_v(ty)
+            tcp_c, txp_c, typ_c = S_s(tcp), S_v(txp), S_v(typ)
+            tcg_c, txg_c, tyg_c = S_s(tcg), S_v(txg), S_v(tyg)
+            mi = mc_c[1:][:, None]
+            mxi = mx_c[1:][:, None]
+            myi = my_c[1:][:, None]
             mxsum = mi * mom(1, 0) + mxi * mom(2, 0) + myi * mom(1, 1)
             mysum = mi * mom(0, 1) + mxi * mom(1, 1) + myi * mom(0, 2)
             mxxsum = mi * mom(2, 0) + mxi * mom(3, 0) + myi * mom(2, 1)
@@ -591,22 +607,22 @@ def _family_fluxes(grid: Grid, moments, offsets, mc, mx, my, tc, tx, ty,
                 return msum_i * a + mxsum * b + mysum * c_
 
             # stage 1: every tracer as if type 1
-            mts1 = m1(tc, tx, ty)
+            mts1 = m1(tc_c, tx_c, ty_c)
             # stage 2: the (type-1) parent's first/second moment sums
             # contracted with this tracer's reconstruction
-            mts1_p = m1(tcp, txp, typ)
-            mtx1_p = mxsum * tcp + mxxsum * txp + mxysum * typ
-            mty1_p = mysum * tcp + mxysum * txp + myysum * typ
-            mts2 = mts1_p * tc + mtx1_p * tx + mty1_p * ty
+            mts1_p = m1(tcp_c, txp_c, typ_c)
+            mtx1_p = mxsum * tcp_c + mxxsum * txp_c + mxysum * typ_c
+            mty1_p = mysum * tcp_c + mxysum * txp_c + myysum * typ_c
+            mts2 = mts1_p * tc_c + mtx1_p * tx_c + mty1_p * ty_c
             # stage 3: type-3 upwind from the (type-2) parent, whose own
             # parent is the grandparent
-            mts1_g = m1(tcg, txg, tyg)
-            mtx1_g = mxsum * tcg + mxxsum * txg + mxysum * tyg
-            mty1_g = mysum * tcg + mxysum * txg + myysum * tyg
-            mts2_p = mts1_g * tcp + mtx1_g * txp + mty1_g * typ
-            mts3 = mts2_p * tc
+            mts1_g = m1(tcg_c, txg_c, tyg_c)
+            mtx1_g = mxsum * tcg_c + mxxsum * txg_c + mxysum * tyg_c
+            mty1_g = mysum * tcg_c + mxysum * txg_c + myysum * tyg_c
+            mts2_p = mts1_g * tcp_c + mtx1_g * txp_c + mty1_g * typ_c
+            mts3 = mts2_p * tc_c
             mts = t1 * mts1 + t2 * mts2 + t3 * mts3
-            mtflx = mtflx + _shs(mts, dj, di, bc)
+            mtflx = mtflx + post(mts)
 
     mflx = sign * mflx * areafac[None]
     if tc is not None:
@@ -776,10 +792,14 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
     flux_kernel: 'xla' runs the plain PyTorch path; 'fused_full' runs the
     one-pass transport (kernels/remap.transport_fused) and 'fused_pallas'
     the flux-only kernel (kernels/remap.tracer_fluxes_fused) between
-    `construct_fields` and `update_pre_floor`; both launch their CUDA
-    kernel on CUDA tensors and never fall back there. Returns (new_state, diag) with 0-d
-    tensors 'oob', 'neg_mass', 'mono_violation', 'cons_err_area',
-    'cons_err_tracer' (relative errors; 0 when checks are off) and
+    `construct_fields` and `update_pre_floor`. On CUDA tensors both launch
+    their kernel or raise: a tripole or y-cyclic grid (ROADMAP A9), f64
+    state and a failed build or launch raise, and nothing stands in for
+    the kernel (the JAX package falls back to its XLA path instead). On
+    CPU tensors the wrappers run their plain versions. Returns (new_state,
+    diag) with 0-d tensors 'oob', 'neg_mass', 'mono_violation',
+    'cons_err_area', 'cons_err_tracer' (relative errors; 0 when checks are
+    off) and
     'neg_mass_depth', the most negative ocean-cell mass before the floor,
     negated (the JAX package reports only the flag)."""
     if grid_ice in ("C", "CD"):

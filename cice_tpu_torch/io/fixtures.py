@@ -1,14 +1,18 @@
-"""Format-true POP grid fixtures (the gx grid and kmt part of
-cice_tpu/io/fixtures.py, copied so the port imports nothing of the JAX
-package).
+"""Format-true baseline fixtures: gx3/gx1 displaced-pole and tx1 tripole
+POP grids and their forcing files (a copy of cice_tpu/io/fixtures.py, so the
+port imports nothing of the JAX package).
 
-The production gx3/gx1 displaced-pole grids ship as external POP binaries;
-this module synthesizes stand-ins with the same byte layout, record order,
-units and staggering as the files `popgrid` (ice_grid.F90:1000) reads: a
-rotated-pole mapping puts the grid's north pole over Greenland (75N, 318E),
-metrics come from the mapped corner lattice, and the land mask is the
-analytic continents mask at true TLAT/TLON. The forcing-file writers are not
-ported yet (ROADMAP: forcing files, coupling and I/O).
+The production grids ship as external POP binaries; this module synthesizes
+stand-ins with the same byte layout, record order, units and staggering as
+the files `popgrid` (ice_grid.F90:1000) reads. gx3/gx1: a rotated-pole
+mapping puts the grid's north pole over Greenland (75N, 318E), metrics come
+from the mapped corner lattice. tx1: a mirror-symmetric tripole stand-in
+with spherical metrics and the U fold on the top row. The land mask is the
+analytic continents mask at true TLAT/TLON.
+
+The forcing files are written in the containers `io.forcing_files` reads:
+NCAR bulk monthly (.npz), JRA55 3-hourly (netCDF3) and the monthly ocean
+climatology (.npz). Everything is computed locally with NumPy and SciPy.
 """
 
 from __future__ import annotations
@@ -87,6 +91,17 @@ def _tlatlon(ULAT, ULON):
     return TLAT, TLON
 
 
+def _fixture_arrays(Klat, Klon):
+    HTN, HTE, ANGLE = _corner_metrics(Klat, Klon)
+    ULAT, ULON = Klat[1:, 1:], Klon[1:, 1:]
+    TLAT, TLON = _tlatlon(ULAT, ULON)
+    d2r = np.pi / 180.0
+    kmt = continents_mask(TLAT / d2r, TLON / d2r)
+    kmt[0, :] = 0.0
+    return dict(ULAT=ULAT, ULON=ULON, HTN=HTN, HTE=HTE, ANGLE=ANGLE,
+                TLAT=TLAT, TLON=TLON, kmt=kmt)
+
+
 def make_displaced_pole_arrays(nx: int, ny: int, pole_lat_deg: float = 75.0,
                                pole_lon_deg: float = 318.0,
                                lat_min: float = -78.0,
@@ -98,14 +113,26 @@ def make_displaced_pole_arrays(nx: int, ny: int, pole_lat_deg: float = 75.0,
     phi_r = np.broadcast_to(phi_r, (ny + 1, nx + 1))
     Klat, Klon = _rotated_to_geo(phi_r, lam_r, pole_lat_deg * d2r,
                                  pole_lon_deg * d2r)
-    HTN, HTE, ANGLE = _corner_metrics(Klat, Klon)
-    ULAT, ULON = Klat[1:, 1:], Klon[1:, 1:]
-    TLAT, TLON = _tlatlon(ULAT, ULON)
-    kmt = continents_mask(TLAT / d2r, TLON / d2r)
-    kmt[0, :] = 0.0
-    kmt[-1, :] = 0.0        # closed northern boundary ring (around the pole)
-    return dict(ULAT=ULAT, ULON=ULON, HTN=HTN, HTE=HTE, ANGLE=ANGLE,
-                TLAT=TLAT, TLON=TLON, kmt=kmt)
+    d = _fixture_arrays(Klat, Klon)
+    d["kmt"][-1, :] = 0.0   # closed northern boundary ring (around the pole)
+    return d
+
+
+def make_tripole_arrays(nx: int, ny: int, lat_min: float = -78.0,
+                        lat_max: float = 89.0) -> dict:
+    """Mirror-symmetric tripole stand-in: spherical metrics, U fold at the
+    top row (ug_implementation.rst:279-380 seam semantics)."""
+    d2r = np.pi / 180.0
+    phi = np.linspace(lat_min, lat_max, ny + 1)[:, None] * d2r
+    lam = (np.arange(nx + 1) * (2.0 * np.pi / nx))[None, :]
+    Klat = np.broadcast_to(phi, (ny + 1, nx + 1)).copy()
+    Klon = np.broadcast_to(lam, (ny + 1, nx + 1)).copy()
+    d = _fixture_arrays(Klat, Klon)
+    # the top row is the seam, folded by the halo and not closed: make it
+    # consistent across the fold (T ghost row ny mirrors row ny-1)
+    kmt = d["kmt"]
+    kmt[-1] = np.minimum(kmt[-1], kmt[-1][::-1])
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -141,12 +168,177 @@ def ensure_displaced_pole_grid(nx: int, ny: int,
     gpath = os.path.join(gdir, f"dp{nx}x{ny}_grid.bin")
     kpath = os.path.join(gdir, f"dp{nx}x{ny}_kmt.bin")
     if not (os.path.exists(gpath) and os.path.exists(kpath)):
-        arrs = make_displaced_pole_arrays(nx, ny)
-        # write under temporary names, then rename: concurrent writers of
-        # the same fixture never expose a partial file
-        tag = f".{os.getpid()}.tmp"
-        write_pop_grid_binary(gpath + tag, arrs)
-        write_kmt_binary(kpath + tag, arrs["kmt"])
-        os.replace(gpath + tag, gpath)
-        os.replace(kpath + tag, kpath)
+        _write_grid_files(gpath, kpath, make_displaced_pole_arrays(nx, ny))
     return {"grid": gpath, "kmt": kpath}
+
+
+def _write_grid_files(gpath: str, kpath: str, arrs: dict) -> None:
+    """The grid and kmt binaries, written under temporary names and then
+    renamed: concurrent writers of the same fixture never expose a partial
+    file."""
+    tag = f".{os.getpid()}.tmp"
+    write_pop_grid_binary(gpath + tag, arrs)
+    write_kmt_binary(kpath + tag, arrs["kmt"])
+    os.replace(gpath + tag, gpath)
+    os.replace(kpath + tag, kpath)
+
+
+# ---------------------------------------------------------------------------
+# forcing fixtures
+# ---------------------------------------------------------------------------
+
+def _analytic_atm(TLATd, TLONd, doy: float, hour_utc: float = 12.0) -> dict:
+    """Smooth seasonal analytic atmosphere evaluated at day-of-year `doy`."""
+    latr = np.deg2rad(TLATd)
+    lonr = np.deg2rad(TLONd)
+    # annual-mean temperature + seasonally reversing anomaly by hemisphere
+    tmean = 301.0 - 43.0 * (np.abs(TLATd) / 90.0) ** 2
+    amp = 15.0 * (np.abs(TLATd) / 90.0) ** 1.5
+    season = -np.cos(2.0 * np.pi * (doy - 15.0) / 365.0)   # NH coldest ~Jan 15
+    Tair = tmean + amp * np.sign(TLATd) * season
+    # humidity: 80% of saturation (prepare_forcing caps it again)
+    Qa = 0.8 * (640380.0 / 1.3) * np.exp(-5107.4 / Tair)
+    # zonal circulation bands + drifting synoptic wave
+    phase = 2.0 * np.pi * doy / 30.0
+    uatm = (6.0 * np.sin(2.0 * latr) ** 2 - 2.0 +
+            2.0 * np.cos(3.0 * lonr + phase))
+    vatm = 2.0 * np.sin(3.0 * lonr + phase) + np.sin(2.0 * latr)
+    # daily-mean downwelling SW from solar declination
+    decl = np.deg2rad(-23.44) * np.cos(2.0 * np.pi * (doy + 10.0) / 365.0)
+    cosz_noon = np.clip(np.cos(latr - decl), 0.0, 1.0)
+    diurnal = max(np.cos(2.0 * np.pi * (hour_utc - 12.0) / 24.0), 0.0)
+    fsw = 1365.0 * 0.55 * cosz_noon * (0.4 + 0.6 * diurnal)
+    cldf = 0.5 + 0.2 * np.sin(latr) ** 2
+    # precipitation (mks kg/m^2/s), ~1 mm/day with storm-track maxima
+    fsnow = 1.0e-5 * (0.4 + 0.6 * np.cos(2.0 * latr) ** 2)
+    flw = 5.67e-8 * (Tair - 10.0) ** 4 * (0.7 + 0.2 * cldf)
+    return dict(Tair=Tair, Qa=Qa, uatm=uatm, vatm=vatm, fsw=fsw, cldf=cldf,
+                fsnow=fsnow, flw=flw)
+
+
+def _atomic_savez(path: str, **arrays) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez_compressed(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def write_ncar_npz(dirpath: str, TLATd, TLONd, year: int = 2005) -> str:
+    """NCAR bulk monthly file: 12 records per field (ncar_dataset layout)."""
+    os.makedirs(dirpath, exist_ok=True)
+    fields = {k: [] for k in
+              ("Tair", "Qa", "uatm", "vatm", "fsw", "cldf", "fsnow")}
+    for m in range(12):
+        a = _analytic_atm(TLATd, TLONd, doy=(m + 0.5) * 365.0 / 12.0)
+        for k in fields:
+            fields[k].append(a[k])
+    path = os.path.join(dirpath, f"ncar_bulk_{year:04d}.npz")
+    _atomic_savez(path, **{k: np.asarray(v, np.float32)
+                           for k, v in fields.items()})
+    return path
+
+
+JRA55_VARS = ("airtmp", "spchmd", "wndewd", "wndnwd", "glbrad", "dlwsfc",
+              "ttlpcp")
+
+
+def write_jra55_nc(dirpath: str, TLATd, TLONd, year: int = 2005,
+                   nrec: int = 56, rec0: int = 0) -> str:
+    """JRA55-format netCDF3: 3-hourly records of airtmp/spchmd/wndewd/
+    wndnwd/glbrad/dlwsfc/ttlpcp (jra55_dataset layout). Only `nrec`
+    records from `rec0` are materialized: runs must start late enough
+    (day_init >= 2 for rec0=0) that no earlier record is read."""
+    from scipy.io import netcdf_file
+    os.makedirs(dirpath, exist_ok=True)
+    ny, nx = np.asarray(TLATd).shape
+    path = os.path.join(dirpath, f"JRA55_{year:04d}.nc")
+    src = dict(airtmp="Tair", spchmd="Qa", wndewd="uatm", wndnwd="vatm",
+               glbrad="fsw", dlwsfc="flw", ttlpcp="fsnow")
+    buf = {k: np.empty((nrec, ny, nx), np.float32) for k in JRA55_VARS}
+    for r in range(nrec):
+        sec = (rec0 + r + 0.5) * 3.0 * 3600.0
+        a = _analytic_atm(TLATd, TLONd, 1.0 + sec / 86400.0,
+                          hour_utc=(sec / 3600.0) % 24.0)
+        for k in JRA55_VARS:
+            buf[k][r] = a[src[k]]
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with netcdf_file(tmp, "w") as f:
+        f.createDimension("time", nrec)
+        f.createDimension("nj", ny)
+        f.createDimension("ni", nx)
+        for k in JRA55_VARS:
+            f.createVariable(k, "f", ("time", "nj", "ni"))[:] = buf[k]
+    os.replace(tmp, path)
+    return path
+
+
+def write_ocean_clim_npz(dirpath: str, TLATd, TLONd) -> str:
+    """Monthly ocean climatology (ocean_clim_dataset layout)."""
+    os.makedirs(dirpath, exist_ok=True)
+    latr = np.deg2rad(np.asarray(TLATd))
+    lonr = np.deg2rad(np.asarray(TLONd))
+    sst, sss, uocn, vocn, qdp, hmix = [], [], [], [], [], []
+    for m in range(12):
+        doy = (m + 0.5) * 365.0 / 12.0
+        season = -np.cos(2.0 * np.pi * (doy - 15.0) / 365.0)
+        t = (28.0 * np.cos(latr) ** 2 - 1.2 +
+             1.5 * np.sign(latr) * season * np.abs(np.sin(latr)))
+        sst.append(np.maximum(t, -1.8))
+        sss.append(34.0 - 2.0 * np.cos(latr) ** 6)
+        uocn.append(0.05 * np.sin(2.0 * latr) + 0.02 * np.cos(2 * lonr))
+        vocn.append(0.02 * np.sin(2 * lonr))
+        qdp.append(np.full_like(t, -2.0))          # W/m^2 deep heat flux
+        hmix.append(20.0 + 10.0 * np.cos(latr) ** 2)
+    path = os.path.join(dirpath, "ocean_clim.npz")
+    _atomic_savez(path, **{k: np.asarray(v, np.float32) for k, v in dict(
+        sst=sst, sss=sss, uocn=uocn, vocn=vocn, qdp=qdp,
+        hmix=hmix).items()})
+    return path
+
+
+# ---------------------------------------------------------------------------
+# the whole baseline set, written once
+# ---------------------------------------------------------------------------
+
+def ensure_baseline_fixtures(root: str | None = None, year: int = 2005,
+                             verbose: bool = False) -> dict:
+    """Create (once) the baseline fixture set under `root` (default
+    `fixtures_root()`, i.e. $CICE_TPU_TORCH_FIXTURES):
+
+      {root}/grids/{name}_grid.bin, {name}_kmt.bin     POP binary
+      {root}/forcing/{name}/ncar_bulk_YYYY.npz          NCAR bulk monthly
+      {root}/forcing/gx1/JRA55_YYYY.nc                  JRA55 3-hourly
+      {root}/forcing/{name}/ocean_clim.npz              ocean climatology
+
+    for gx3, gx1 and tx1. Every file is written under a temporary name and
+    renamed, and a `.complete` marker comes last, so concurrent callers
+    never read a partial set. Returns {name: {"grid", "kmt", "forcing",
+    "nx", "ny"}}."""
+    root = root or fixtures_root()
+    gdir = os.path.join(root, "grids")
+    os.makedirs(gdir, exist_ok=True)
+    out = {}
+    for name, (nx, ny) in GRID_DIMS.items():
+        gpath = os.path.join(gdir, f"{name}_grid.bin")
+        kpath = os.path.join(gdir, f"{name}_kmt.bin")
+        fdir = os.path.join(root, "forcing", name)
+        out[name] = {"grid": gpath, "kmt": kpath, "forcing": fdir,
+                     "nx": nx, "ny": ny}
+        done = os.path.join(fdir, ".complete")
+        if os.path.exists(done):
+            continue
+        if verbose:
+            print(f"[fixtures] generating {name} ({nx}x{ny}) ...")
+        arrs = (make_tripole_arrays(nx, ny) if name == "tx1"
+                else make_displaced_pole_arrays(nx, ny))
+        _write_grid_files(gpath, kpath, arrs)
+        TLATd = np.rad2deg(arrs["TLAT"])
+        TLONd = np.rad2deg(arrs["TLON"])
+        write_ncar_npz(fdir, TLATd, TLONd, year)
+        write_ocean_clim_npz(fdir, TLATd, TLONd)
+        if name == "gx1":
+            write_jra55_nc(fdir, TLATd, TLONd, year)
+        tmp = f"{done}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            f.write("ok\n")
+        os.replace(tmp, done)
+    return out

@@ -2,8 +2,9 @@
 `pop_bin` path of cice_tpu/io/grids.py; reference popgrid ice_grid.F90:1000).
 
 Host-side NumPy IO; `core.grid.from_arrays` derives the metrics and puts
-the Grid on a device. netCDF and MOM grids are not ported yet (ROADMAP:
-forcing files, coupling and I/O).
+the Grid on a device, with the boundary conditions of ew/ns_boundary_type
+(tx1: ns_boundary_type='tripole'). netCDF and MOM grids are not ported yet
+(ROADMAP: forcing files, coupling and I/O).
 """
 
 from __future__ import annotations

@@ -12,8 +12,11 @@ routes that `choose_route` picks from the grid and the card:
 - `stream`: two launches per subcycle with the state in global memory, for
   grids whose tiles cannot all be resident.
 
-A launch that the card refuses raises; no route stands in for the other. It
-replaces cice_tpu/kernels/evp_pallas.py:evp_solve_fused.
+Neither route knows a tripole fold or a y-cyclic wrap, and both are
+float32: on CUDA tensors such a grid or dtype raises (ROADMAP A9), and a
+launch that the card refuses raises; no route and no plain version stands
+in for the kernel there. It replaces
+cice_tpu/kernels/evp_pallas.py:evp_solve_fused.
 """
 
 from __future__ import annotations
@@ -162,7 +165,8 @@ def evp_solve_cuda(grid: Grid, p: EvpParams, prep: DynPrep, strength,
     if grid.bc.tripole or grid.bc.y_cyclic:
         raise NotImplementedError(
             "fused EVP kernel: tripole/y-cyclic boundaries are not ported "
-            "yet (ROADMAP A3: tripole and y-cyclic boundaries)")
+            "yet (ROADMAP A9: tripole and y-cyclic boundaries in K1-K3); "
+            "evp_algorithm='standard_2d' runs the plain loop")
     ny, nx = grid.shape
     dev = strength.device
     f32 = (strength, stressp, stressm, stress12, uocn, vocn, prep.uvel,
@@ -227,12 +231,19 @@ def evp_solve_cuda(grid: Grid, p: EvpParams, prep: DynPrep, strength,
     return out
 
 
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def evp_solve_fused(grid: Grid, p: EvpParams, prep: DynPrep, strength,
                     stressp, stressm, stress12, *, uocn, vocn):
     """Drop-in for dynamics.evp.evp_solve running the solve in CUDA.
     Returns (uvel, vvel, stressp, stressm, stress12, strintx, strinty,
-    taubx, tauby)."""
-    if strength.device.type == "cpu":
+    taubx, tauby). CPU tensors run the plain `evp_solve`; on CUDA tensors
+    the kernel runs, or `evp_solve_cuda` raises for a grid or dtype it
+    cannot take. A run that wants the plain loop there names it
+    (evp_algorithm='standard_2d')."""
+    if not _on_cuda(strength):
         return evp_solve(grid, p, prep, strength, stressp, stressm,
                          stress12, uocn=uocn, vocn=vocn)
     return unpack_outputs(evp_solve_cuda(grid, p, prep, strength, stressp,

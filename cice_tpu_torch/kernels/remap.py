@@ -18,7 +18,10 @@ Both kernels walk the tracers in the table's dependency order
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (`transport_plain`, `tracer_fluxes_plain`); on CUDA tensors it launches its
-kernel or raises.
+kernel or raises. Neither kernel knows a tripole fold or a y-cyclic wrap
+(ROADMAP A9), and both are float32: on CUDA tensors such a grid or dtype
+raises, and a run that wants the plain transport there names it
+(remap_kernel='xla').
 """
 
 from __future__ import annotations
@@ -318,7 +321,8 @@ def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
     if grid.bc.tripole or grid.bc.y_cyclic:
         raise NotImplementedError(
             "fused transport kernel: tripole/y-cyclic boundaries are not "
-            "ported yet (ROADMAP A3: tripole and y-cyclic boundaries)")
+            "ported yet (ROADMAP A9: tripole and y-cyclic boundaries in "
+            "K1-K3); remap_kernel='xla' runs the plain transport")
     ncat, NT, ny, nx = trm.shape
     if NT != len(table):
         raise ValueError(f"trm has {NT} tracers, the table {len(table)}")
@@ -357,7 +361,7 @@ def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
 
 def transport_fused(grid: Grid, mom_n, mom_e, am, trm, table):
     """One-pass transport; returns (am_pre, trm_new)."""
-    if trm.device.type == "cpu":
+    if not _on_cuda(trm):
         return transport_plain(grid, mom_n, mom_e, am, trm, table)
     return transport_cuda(grid, mom_n, mom_e, am, trm, table)
 
@@ -454,7 +458,8 @@ def tracer_fluxes_cuda(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
     if grid.bc.tripole or grid.bc.y_cyclic:
         raise NotImplementedError(
             "flux-only transport kernel: tripole/y-cyclic boundaries are not "
-            "ported yet (ROADMAP A3: tripole and y-cyclic boundaries)")
+            "ported yet (ROADMAP A9: tripole and y-cyclic boundaries in "
+            "K1-K3); remap_kernel='xla' runs the plain transport")
     if tc.dtype != torch.float32:
         raise ValueError("flux-only transport kernel is float32-only, got "
                          f"{tc.dtype}; use remap_kernel='xla'")

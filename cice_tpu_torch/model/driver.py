@@ -2,15 +2,17 @@
 CICE_InitMod.F90 `cice_init`, ice_init.F90 `set_state_var`:3266, the loop
 body of CICE_RunMod.F90 `ice_step`).
 
-`Model` owns config, grid, static tables, forcing, the calendar and the
-prognostic state on one device. `step()` / `run(n)` advance the full
-coupled step (`model_step`) with the calendar, history accumulation and
-output, the diagnostics and aborts at `diagfreq` (each abort writes an
-early checkpoint first) and restart dumps at `dumpfreq`; `runtype=
-'continue'` resumes from the pointer file. `run_dynamics(n)` advances only
-the dynamics-transport-ridging supercycle (`step_dyn_transport`) under the
-data wind stress. Prescribed ice, restoring, point probes, the background
-writer (ROADMAP A7) and sharded restarts (A8) are not ported yet.
+`Model` owns config, grid, static tables, the open forcing datasets
+(`datasets`), forcing, the calendar and the prognostic state on one
+device. `step()` / `run(n)` advance the full coupled step (`model_step`)
+with the calendar, history accumulation and output, the diagnostics and
+aborts at `diagfreq` (each abort writes an early checkpoint first) and
+restart dumps at `dumpfreq`; `runtype='continue'` resumes from the pointer
+file. `run_dynamics(n)` advances only the dynamics-transport-ridging
+supercycle (`step_dyn_transport`) under the data wind stress. Prescribed
+ice, restoring, point probes, the background writer (ROADMAP A7) and
+sharded restarts (A8) are not ported yet; a Config that asks for an
+unported module raises at construction, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..utils.timers import Timers
 from .flux import zeros_forcing
 from .forcing import default_ocn, get_forcing
 from .state import State, zeros_state
-from .step import ModelStatic, model_step, step_dyn_transport
+from .step import ModelStatic, check_ported, model_step, step_dyn_transport
 
 
 def _scalar(v, dtype, device) -> torch.Tensor:
@@ -167,6 +169,7 @@ class Model:
             raise NotImplementedError(
                 "print_points and debug_model probes are not ported yet "
                 "(ROADMAP A7)")
+        check_ported(cfg)
         # use_leap_years / days_per_year resolve to the calendar type
         # (reference ice_calendar init_calendar consistency checks)
         cal_type = s.calendar_type
@@ -184,6 +187,8 @@ class Model:
         self.device = device
         self.grid = grid if grid is not None else make_grid(cfg, device)
         self.static = ModelStatic.build(cfg)
+        # the open forcing datasets, by stream (get_forcing's `datasets`)
+        self.datasets: dict = {}
         self.forcing = zeros_forcing(self.grid.shape, cfg.np_dtype, device)
         if cfg.forcing.default_season == "summer":
             warm = torch.full(self.grid.shape, 273.15 + 2.0,
@@ -232,7 +237,8 @@ class Model:
         return get_forcing(self.cfg, self.grid, float(cal.elapsed_seconds),
                            cal.fyday, self.state.aice, self.forcing,
                            year=cal.year,
-                           sec_of_year=(cal.fyday - 1.0) * cst.secday)
+                           sec_of_year=(cal.fyday - 1.0) * cst.secday,
+                           datasets=self.datasets)
 
     def step(self, timer=None) -> State:
         """One full coupled step: forcing, `model_step`, the calendar and

@@ -49,28 +49,37 @@ def _phase(timer, name):
 
 
 def check_ported(cfg) -> None:
-    """Raise for every option of the full step whose module is not ported."""
-    t = cfg.tracers
+    """Raise for every option of the full step whose module is not ported,
+    naming the ROADMAP item that will port it."""
+    t, d = cfg.tracers, cfg.dynamics
+    A5 = "ROADMAP A5: C/CD, VP, EAP, upwind and vanleer"
+    A6 = "ROADMAP A6: column options"
     checks = (
         (cfg.shortwave.shortwave.startswith("dEdd"),
-         "delta-Eddington shortwave (shortwave='dEdd*')"),
-        (cfg.thermo.ktherm == 2, "mushy thermodynamics (ktherm=2)"),
-        (t.tr_fsd, "the floe size distribution (tr_fsd)"),
-        (t.tr_snow, "advanced snow physics (tr_snow)"),
-        (cfg.forcing.formdrag, "form drag (formdrag)"),
-        (cfg.forcing.highfreq, "high-frequency coupling (highfreq)"),
-        (t.tr_aero, "aerosols (tr_aero)"),
-        (t.tr_iso, "isotopes (tr_iso)"),
-        (t.tr_brine, "the brine height tracer (tr_brine)"),
+         "delta-Eddington shortwave (shortwave='dEdd*')", A6),
+        (cfg.thermo.ktherm == 2, "mushy thermodynamics (ktherm=2)", A6),
+        (t.tr_fsd, "the floe size distribution (tr_fsd)", A6),
+        (t.tr_snow, "advanced snow physics (tr_snow)", A6),
+        (cfg.forcing.formdrag, "form drag (formdrag)", A6),
+        (cfg.forcing.highfreq, "high-frequency coupling (highfreq)", A6),
+        (t.tr_aero, "aerosols (tr_aero)", A6),
+        (t.tr_iso, "isotopes (tr_iso)", A6),
+        (t.tr_brine, "the brine height tracer (tr_brine)", A6),
         (t.tr_pond_topo or t.tr_pond_sealvl,
-         "topographic and sea-level ponds"),
+         "topographic and sea-level ponds", A6),
         (cfg.zbgc.skl_bgc or cfg.zbgc.z_tracers,
-         "skeletal-layer and vertical biogeochemistry"),
+         "skeletal-layer and vertical biogeochemistry", A6),
+        (cfg.grid.grid_ice != "B" and d.kdyn >= 1,
+         f"grid_ice={cfg.grid.grid_ice!r} dynamics", A5),
+        (d.kdyn in (2, 3), f"kdyn={d.kdyn} (EAP/VP)", A5),
+        (d.ktransport >= 1 and d.advection != "remap",
+         f"advection={d.advection!r}", A5),
+        (d.evp_algorithm == "wide_halo", "evp_algorithm='wide_halo'",
+         "ROADMAP A8: multi-GPU evp_wide over torch.distributed"),
     )
-    for on, what in checks:
+    for on, what, item in checks:
         if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP A6: column options)")
+            raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 @dataclass(frozen=True)

@@ -197,6 +197,32 @@ def test_fused_wrapper_cpu_matches_jax_pallas_interpret():
     assert tkevp.launches == before     # CPU tensors never reach the kernel
 
 
+@pytest.mark.parametrize("case", ["tripole", "y_cyclic", "float64"])
+def test_fused_wrapper_on_cuda_raises_where_the_kernel_cannot_go(
+        monkeypatch, case):
+    """On a CUDA device evp_solve_fused launches K1 or raises; it never
+    runs the plain loop there (the JAX package falls back to its XLA loop
+    on a tripole or y-cyclic grid and solves f64 in f32). The device check
+    is patched, so no card is needed; the raise comes before anything is
+    built."""
+    monkeypatch.setattr(tkevp, "_on_cuda", lambda t: True)
+    dtype = "float64" if case == "float64" else "float32"
+    jg, tg, cfg, f = _problem(dtype)
+    ns = {"tripole": "tripole", "y_cyclic": "cyclic"}.get(case, "open")
+    tg = dataclasses.replace(tg, bc=TBC("cyclic", ns))
+    _, tp = _preps(jg, tg, cfg, f)
+    T = torch.as_tensor
+    sp, sm, s12 = f["stress"]
+    exc, what = ((ValueError, "f32-only") if case == "float64" else
+                 (NotImplementedError, "ROADMAP A9"))
+    before = tkevp.launches
+    with pytest.raises(exc, match=what):
+        tkevp.evp_solve_fused(tg, tcommon.evp_params(cfg.dynamics, 3600.0),
+                              tp, T(f["vice"]), T(sp), T(sm), T(s12),
+                              uocn=T(f["uocn"]), vocn=T(f["vocn"]))
+    assert tkevp.launches == before
+
+
 def test_kernel_params_follow_evp_params():
     p = tcommon.evp_params(Config().dynamics, 3600.0)
     vals = list(tkevp.kernel_params(p))

@@ -56,9 +56,23 @@ def test_neighbors_extrapolate_closed_mask(ew, ns):
             np.asarray(jh.apply_closed_mask(jnp.asarray(f), jb, nrows)))
 
 
-def test_shift_tripole_raises():
-    with pytest.raises(NotImplementedError, match="tripole and y-cyclic"):
-        tshift(torch.zeros(4, 4), 1, 0, bc=TBC("cyclic", "tripole"))
+@pytest.mark.parametrize("ns", ["tripole", "tripoleT"])
+def test_shift_tripole(ns):
+    """The fold's ghost rows for every field location and type, and every
+    offset, exactly as the JAX package fills them."""
+    f = np.random.default_rng(8).standard_normal((2, 7, 10))
+    for loc in range(1, 5):
+        for ftype in range(1, 4):
+            for dj, di in OFFSETS:
+                ref = np.asarray(jshift(jnp.asarray(f), dj, di,
+                                        bc=JBC("cyclic", ns), loc=loc,
+                                        ftype=ftype))
+                got = tshift(torch.as_tensor(f), dj, di,
+                             bc=TBC("cyclic", ns), loc=loc,
+                             ftype=ftype).numpy()
+                np.testing.assert_array_equal(
+                    got, ref, err_msg=f"{ns} loc {loc} ftype {ftype} "
+                    f"{dj},{di}")
 
 
 def _assert_grids_equal(tg, jg):

@@ -597,3 +597,91 @@ def test_transport_kernel_info(cuda):
     info = kremap.kernel_info(table)
     assert info["tile"] == (32, 8) and info["threads"] == 576
     assert info["blocks_per_sm"] >= 1 and 0 < info["registers"] <= 112
+
+
+# ---------------------------------------------------------------------------
+# where a kernel cannot take the grid or the dtype, the wrappers and the
+# dispatchers above them raise on the card; a run names the plain engines
+# to get them there
+# ---------------------------------------------------------------------------
+
+def _launches():
+    return (kevp.launches, kremap.launches, kremap.flux_launches)
+
+
+@pytest.mark.parametrize("ns", ["tripole", "cyclic"])
+def test_evp_raises_on_tripole_and_y_cyclic(cuda, ns):
+    import dataclasses
+    from cice_tpu_torch.core.halo import BC
+    args, kw = _evp_problem(cuda, 40, 48, "cyclic", 10)
+    g = dataclasses.replace(args[0], bc=BC("cyclic", ns))
+    args = (g,) + args[1:]
+    before = _launches()
+    for solve in (kevp.evp_solve_fused, kevp.evp_solve_cuda):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+            solve(*args, **kw)
+    torch.cuda.synchronize()
+    assert _launches() == before
+
+
+def test_evp_raises_on_float64(cuda):
+    """K1 is float32; f64 inputs raise rather than being rounded to f32
+    (the JAX package's fused solve casts them)."""
+    args, kw = _evp_problem(cuda, 40, 48, "cyclic", 10)
+    g, p, prep, *stresses = args
+    import dataclasses
+    as64 = lambda o: dataclasses.replace(o, **{
+        f.name: getattr(o, f.name).double()
+        for f in dataclasses.fields(o)
+        if isinstance(getattr(o, f.name), torch.Tensor)
+        and getattr(o, f.name).is_floating_point()})
+    args64 = (g, p, as64(prep)) + tuple(t.double() for t in stresses)
+    kw64 = {k: v.double() for k, v in kw.items()}
+    before = _launches()
+    with pytest.raises(ValueError, match="f32-only"):
+        kevp.evp_solve_fused(*args64, **kw64)
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("case", ["tripole", "y_cyclic", "float64"])
+@pytest.mark.parametrize("fk", ["fused_pallas", "fused_full"])
+def test_transport_raises_where_the_kernels_cannot_go(cuda, case, fk):
+    import dataclasses
+    from cice_tpu_torch.core.halo import BC
+    over = {"dynamics.evp_algorithm": "standard_2d"}
+    if case == "float64":
+        over["dtype"] = "float64"
+    m = Model(tconfig.gx1pop_dyn(48, 40).with_overrides(**over), device=cuda)
+    dt = m.cfg.setup.dt
+    st, _ = step_dyn_horiz(m.static, m.grid, m.state, m.forcing,
+                           m.forcing.strax + 0.1, m.forcing.stray + 0.05, dt)
+    ns = {"tripole": "tripole", "y_cyclic": "cyclic"}.get(case, "open")
+    g = dataclasses.replace(m.grid, bc=BC("cyclic", ns))
+    exc, what = ((ValueError, "float32") if case == "float64" else
+                 (NotImplementedError, "ROADMAP A9"))
+    before = _launches()
+    with pytest.raises(exc, match=what):
+        rx.horizontal_remap_exact(g, st, m.static.registry, m.forcing.Tf, dt,
+                                  flux_kernel=fk, l_dp_midpt=True)
+    torch.cuda.synchronize()
+    assert _launches() == before
+
+
+def test_y_cyclic_model_raises_with_kernels_and_steps_on_named_plain_engines(
+        cuda):
+    """gx1pop_step with ns_boundary_type='cyclic': with K1 and K3 asked for,
+    the step raises naming ROADMAP A9; with the plain engines named it
+    runs and launches no kernel."""
+    over = {"dynamics.ndte": 20, "grid.ns_boundary_type": "cyclic"}
+    m = Model(tconfig.gx1pop_step(48, 40).with_overrides(**over),
+              device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        m.step()
+    m = Model(tconfig.gx1pop_step(48, 40).with_overrides(**over, **{
+        "dynamics.evp_algorithm": "standard_2d",
+        "dynamics.remap_kernel": "xla"}), device=cuda)
+    before = _launches()
+    m.step()
+    torch.cuda.synchronize()
+    assert _launches() == before
+    assert bool(torch.isfinite(m.state.aicen).all())

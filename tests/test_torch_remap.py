@@ -398,6 +398,28 @@ def test_tracer_fluxes_ineligible_on_cuda_raise(monkeypatch, case):
         tkremap.tracer_fluxes_fused(tg, mom, mom, *args, tt)
 
 
+@pytest.mark.parametrize("fk", ["fused_pallas", "fused_full"])
+@pytest.mark.parametrize("case", ["tripole", "y_cyclic", "float64"])
+def test_remap_engines_on_cuda_raise_where_the_kernels_cannot_go(
+        monkeypatch, case, fk):
+    """horizontal_remap_exact with a kernel named never gives way to the
+    plain path on a CUDA device (the JAX package falls back there): a
+    tripole or y-cyclic grid and f64 state raise from the kernel's
+    wrapper. The device check is patched, so no card is needed; the raise
+    comes before anything is built."""
+    monkeypatch.setattr(tkremap, "_on_cuda", lambda t: True)
+    dtype = "float64" if case == "float64" else "float32"
+    cfg, jg, tg, st, ts, Tf = _setup(dtype, seed=7)
+    ns = {"tripole": "tripole", "y_cyclic": "cyclic"}.get(case, "open")
+    tg = dataclasses.replace(tg, bc=TBC("cyclic", ns))
+    reg = treg(tconfig.Config())
+    exc, what = ((ValueError, "float32") if case == "float64" else
+                 (NotImplementedError, "ROADMAP A9"))
+    with pytest.raises(exc, match=what):
+        trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf), 3600.0,
+                                   flux_kernel=fk, l_dp_midpt=True)
+
+
 def test_tracer_fluxes_bound_counts_planes():
     """The byte bound counts every plane it reads once: at the gx1 shapes
     with the default tracers, 495 planes read (the 2 type-3 tracers' tc

@@ -154,7 +154,8 @@ def test_step_therm1_matches_jax_f64(jax_f64):
     tcfg, _ = _cfgs("float64")
     m = tdriver.Model(tcfg, device="cpu")
     from cice_tpu_torch.model.forcing import get_forcing
-    fc = get_forcing(tcfg, m.grid, 0.0, 1.0, m.state.aice, m.forcing)
+    fc = get_forcing(tcfg, m.grid, 0.0, 1.0, m.state.aice, m.forcing,
+                     datasets={})
     got = tstep_therm1(m.static, m.grid, m.state, fc, tcfg.setup.dt)
     _compare(got, agg, "step_therm1", "float64")
     assert float(np.abs(agg["1.strairx"]).max()) > 1e-3
