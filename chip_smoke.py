@@ -54,7 +54,18 @@ per source, started together), then:
      rtol 1e-3, the largest relative delta per key), host ms per step with
      and without the steps that write files, the forcing's ms per step and
      per record read, and the history and restart ms per file. Files go to
-     cice_tpu_torch/_build/smoke_baseline/ and are removed.
+     cice_tpu_torch/_build/smoke_baseline/ and are removed;
+ 10. the C/CD grids, VP, EAP and the other transports at 320x384: K2 and
+     K3 against their plain versions on the edge moments of a C-grid state
+     (corner means of the face velocities, Bentsen edge areas), max abs
+     error 0.0, each timed beside its bound; gx1pop,gridc (5 days where
+     the C-grid step stays under ~0.5 s, else 1) and gx1pop,dynpicard
+     (1 day) through the baseline runner as in phase 9, under the labels
+     gx1pop+gridc and gx1pop+dynpicard of baselines/r05, with K2 once per
+     step and K1 never; one step each of gx1pop with gridcd, eap,
+     dynanderson, upwind, vanleer and advection=remap_q (finite, a clean
+     `check_state`, K2 once where the exact remap runs, else no launch);
+     box2001_config (80x80, upwind) for 24 steps.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -311,10 +322,17 @@ def plain_evp_on(m, smi) -> float:
     return ms
 
 
-def baseline_runs(dev, smi, reset_counters, read_counters) -> dict:
-    """Phase 9: file forcing, the tripole seam and the baseline runner,
-    through the port CLI's functions. Files go to
-    cice_tpu_torch/_build/smoke_baseline/ and are removed."""
+BASELINE_ROOT = os.path.join(HERE, "cice_tpu_torch", "_build",
+                             "smoke_baseline")
+
+
+def baseline_runner(dev, smi, reset_counters, read_counters):
+    """(cfg_for, run) of the baseline runs under BASELINE_ROOT:
+    `cfg_for(opts, label, sets)` builds an option set's Config with its
+    files in its own directory; `run(opts, label, sets, expect)` runs it
+    through `cli.baseline_model` with history and restarts, checks the
+    oracle, `check_state` and the launches, prints the comparison with
+    baselines/r05/<label>.json and the host costs, and returns them."""
     import argparse
     import shutil
     import statistics
@@ -324,15 +342,8 @@ def baseline_runs(dev, smi, reset_counters, read_counters) -> dict:
     from cice_tpu_torch.cli import main as cli
     from cice_tpu_torch.model.diagnostics import check_state
 
-    root = os.path.join(HERE, "cice_tpu_torch", "_build", "smoke_baseline")
+    root = BASELINE_ROOT
     r05 = os.path.join(HERE, "baselines", "r05")
-    shutil.rmtree(root, ignore_errors=True)
-    t0 = time.perf_counter()
-    from cice_tpu_torch.io.fixtures import ensure_baseline_fixtures
-    ensure_baseline_fixtures()
-    fix_s = time.perf_counter() - t0
-    print(f"baseline fixtures (gx3, gx1, tx1 grids; NCAR, JRA55, ocean "
-          f"climatology) ready in {fix_s:.1f} s")
 
     def cfg_for(opts, label, sets):
         d = os.path.join(root, label)
@@ -428,6 +439,28 @@ def baseline_runs(dev, smi, reset_counters, read_counters) -> dict:
                     plain_evp_ms=plain_evp_ms,
                     final=res["final"])
 
+    return cfg_for, run
+
+
+def baseline_runs(dev, smi, reset_counters, read_counters) -> dict:
+    """Phase 9: file forcing, the tripole seam and the baseline runner,
+    through the port CLI's functions. Files go to BASELINE_ROOT and are
+    removed."""
+    import shutil
+
+    import torch
+
+    from cice_tpu_torch.cli import main as cli
+
+    shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    from cice_tpu_torch.io.fixtures import ensure_baseline_fixtures
+    ensure_baseline_fixtures()
+    fix_s = time.perf_counter() - t0
+    print(f"baseline fixtures (gx3, gx1, tx1 grids; NCAR, JRA55, ocean "
+          f"climatology) ready in {fix_s:.1f} s")
+    cfg_for, run = baseline_runner(dev, smi, reset_counters, read_counters)
+
     k12 = {"evp_fused": 120, "transport_fused": 120, "tracer_fluxes": 0}
     none = {"evp_fused": 0, "transport_fused": 0, "tracer_fluxes": 0}
     def raises_a9(m, what):
@@ -473,7 +506,154 @@ def baseline_runs(dev, smi, reset_counters, read_counters) -> dict:
                            "dynamics.remap_kernel=xla"], none),
             "fixtures_s": fix_s}
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
+
+
+def c_grid_and_other_dynamics(dev, smi, reset_counters, read_counters):
+    """Phase 10: the C/CD grids, VP, EAP and the other transports at
+    gx1pop's full width. (a) K2 and K3 against their plain versions on
+    C-grid edge moments (max abs error 0.0), each timed beside its bound;
+    (b) gx1pop,gridc and (c) gx1pop,dynpicard through the baseline runner;
+    (d) one step of each other option set; (e) box2001_config."""
+    import shutil
+
+    import torch
+
+    from cice_tpu_torch import config as C
+    from cice_tpu_torch.dynamics import remap_exact as rx
+    from cice_tpu_torch.kernels import remap as kremap
+    from cice_tpu_torch.measure import bound_ms, flux_case, timed_ms
+    from cice_tpu_torch.model.diagnostics import check_state
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.step import step_dyn_horiz
+
+    out = {}
+    # ---- (a) K2 and K3 on C-grid moments at 320x384 --------------------
+    cfg = C.gx1pop_step(remap_kernel="auto").with_overrides(
+        **{"grid.grid_ice": "C"})
+    m = Model(cfg, device=dev)
+    g, dt, fc = m.grid, cfg.setup.dt, m.forcing
+    ny, nx = g.shape
+    wind = (fc.strax + 0.1, fc.stray + 0.05)
+    st, _ = step_dyn_horiz(m.static, g, m.state, fc, *wind, dt)
+    dyn_c_ms = timed_ms(lambda: step_dyn_horiz(m.static, g, m.state, fc,
+                                               *wind, dt), 2)
+    uc, vc, ea_e, ea_n = rx.corner_velocities_and_edge_areas(g, st, "C", dt)
+    dxs, dys, oob = rx.departure_points_scaled(g, uc, vc, dt,
+                                               cfg.dynamics.l_dp_midpt)
+    mom_n, mom_e = (t.contiguous() for t in rx.edge_moments(
+        g, dxs, dys, ea_e, ea_n))
+    table = rx.build_flat_table(m.static.registry)
+    am, trm = rx.state_to_tracers(st, m.static.registry, table)
+    kargs = (g, mom_n, mom_e, am, trm, table)
+    fargs, tstack = flux_case(*kargs)
+    ref2 = kremap.transport_plain(*kargs)
+    got2 = kremap.transport_fused(*kargs)
+    ref3 = kremap.tracer_fluxes_plain(*fargs)
+    got3 = kremap.tracer_fluxes_fused(*fargs, tstack=tstack)
+    torch.cuda.synchronize()
+    err = lambda got, ref: max(float((a - r).abs().max())
+                               for a, r in zip(got, ref))
+    finite = all(bool(torch.isfinite(t).all()) for t in (*got2, *got3))
+    k2_err, k3_err = err(got2, ref2), err(got3, ref3)
+    moving = float(torch.sqrt(dxs ** 2 + dys ** 2).max())
+    print(f"C grid at gx1pop (320x384, f32) on {smi}: one C-grid dynamics "
+          f"step (evp_c_solve, ndte={cfg.dynamics.ndte}) {dyn_c_ms:.1f} ms; "
+          f"max departure {moving:.3e} cells, oob {bool(oob)}; K2 on "
+          f"C-grid moments: max abs error {k2_err} against transport_plain;"
+          f" K3: {k3_err} against tracer_fluxes_plain; finite {finite}")
+    if not (finite and moving > 1e-4 and k2_err == 0.0 and k3_err == 0.0):
+        fail("K2 or K3 differs from its plain version on C-grid moments")
+    ncat = am.shape[0] - 1
+    active, needed = kremap.work_fractions(g, mom_n, mom_e)
+    k2 = dict(ms=timed_ms(lambda: kremap.transport_fused(*kargs), 10),
+              plain_ms=timed_ms(lambda: kremap.transport_plain(*kargs), 3),
+              bound=bound_ms(*kremap.bound_bytes_flops(
+                  table, ncat, ny, nx, active, needed)), err=k2_err)
+    k3 = dict(ms=timed_ms(lambda: kremap.tracer_fluxes_fused(
+        *fargs, tstack=tstack), 20, 3),
+        plain_ms=timed_ms(lambda: kremap.tracer_fluxes_plain(*fargs), 3),
+        bound=bound_ms(*kremap.tracer_fluxes_bound_bytes_flops(
+            table, ncat, ny, nx, active, needed)), err=k3_err)
+    for name, k in (("K2", k2), ("K3", k3)):
+        print(f"{name} on C-grid moments: kernel {k['ms']:.4f} ms, plain "
+              f"{k['plain_ms']:.3f} ms per call; {active:.3f} of 6 donor "
+              f"candidates per edge count, {100 * needed:.1f}% of the "
+              f"cells are needed; bound {k['bound'][0]:.4f} ms by "
+              f"{k['bound'][1]}")
+    out.update(k2_cgrid=k2, k3_cgrid=k3, dyn_c_ms=dyn_c_ms,
+               cgrid_active=active, cgrid_needed=needed)
+    del m, st, kargs, fargs, tstack, got2, ref2, got3, ref3
+
+    cfg_for, run = baseline_runner(dev, smi, reset_counters, read_counters)
+    try:
+        # ---- (b) gx1pop,gridc and (c) gx1pop,dynpicard ------------------
+        # 5 days where the C-grid step stays under ~0.5 s (the dynamics
+        # step above plus ~150 ms for the rest of a gx1pop step), else 1
+        days = 5 if dyn_c_ms + 150.0 < 500.0 else 1
+        out["gridc"] = run("gx1pop,gridc", "gx1pop+gridc",
+                           [f"setup.npt={days}"],
+                           {"evp_fused": 0, "transport_fused": 24 * days,
+                            "tracer_fluxes": 0})
+        out["dynpicard"] = run("gx1pop,dynpicard", "gx1pop+dynpicard",
+                               ["setup.npt=1"],
+                               {"evp_fused": 0, "transport_fused": 24,
+                                "tracer_fluxes": 0})
+        # ---- (d) one full-width step of each other option set ----------
+        out["single"] = {}
+        for opts, sets, k2_per_step in (
+                ("gx1pop,gridcd", [], 1), ("gx1pop,eap", [], 1),
+                ("gx1pop,dynanderson", [], 1), ("gx1pop,upwind", [], 0),
+                ("gx1pop,vanleer", [], 0),
+                ("gx1pop", ["dynamics.advection=remap_q"], 0)):
+            label = opts + "".join(f"+{x.split('=')[1]}" for x in sets)
+            sm = Model(cfg_for(opts, label.replace(",", "_"), sets),
+                       device=dev)
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sm.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = read_counters()
+            s = sm.state
+            fin = all(bool(torch.isfinite(t).all()) for t in (
+                s.aicen, s.vicen, s.vsnon, s.uvel, s.vvel, s.uvelE,
+                s.vvelN, s.stressp, s.a11, *s.trcrn.values()))
+            cs = {k: float(v) for k, v in check_state(s).items()}
+            expect = {"evp_fused": 0, "transport_fused": k2_per_step,
+                      "tracer_fluxes": 0}
+            print(f"one step of {label} at 320x384 on {smi}: {ms:.1f} ms "
+                  f"(host clock, the first step: it reads the forcing's "
+                  f"first records), launches {launches}, "
+                  f"finite {fin}, check_state {cs}, max |u| "
+                  f"{float(s.uvel.abs().max()):.3e}")
+            if not fin or cs["unstable"] or cs["nonfinite"] or \
+                    launches != expect:
+                fail(f"one step of {label}: finite {fin}, check_state {cs},"
+                     f" launches {launches} (expected {expect})")
+            out["single"][label] = dict(ms=ms, launches=launches)
+            del sm
+        # ---- (e) box2001_config: 80x80, upwind --------------------------
+        bm = Model(C.box2001_config(), device=dev)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bm.run(24)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        fin = all(bool(torch.isfinite(t).all())
+                  for t in (bm.state.aicen, bm.state.vicen, bm.state.uvel))
+        print(f"box2001_config (80x80, upwind): 24 steps in {wall:.2f} s, "
+              f"launches {launches}, finite {fin}, aice max "
+              f"{float(bm.state.aice.max()):.4f}")
+        if not fin or any(launches.values()):
+            fail("box2001_config: non-finite state or a kernel launched")
+        out["box2001_s"] = wall
+    finally:
+        shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -869,6 +1049,10 @@ def main() -> int:
 
     # ---- file forcing, tripole and the baseline runner ------------------
     base = baseline_runs(dev, smi, reset_counters, read_counters)
+
+    # ---- C/CD grids, VP, EAP and the other transports -------------------
+    cgrid = c_grid_and_other_dynamics(dev, smi, reset_counters,
+                                      read_counters)
     on_base = {k: {r: base[r]["launches"][k]
                    for r in ("gx1pop", "gx3pop", "tx1pop")}
                for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
@@ -888,7 +1072,15 @@ def main() -> int:
          "max_abs_err": k2_abs,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None,
-         "launches_baseline": on_base["transport_fused"]},
+         "launches_baseline": on_base["transport_fused"],
+         "cgrid": {"ms": cgrid["k2_cgrid"]["ms"],
+                   "plain_ms": cgrid["k2_cgrid"]["plain_ms"],
+                   "bound_ms": cgrid["k2_cgrid"]["bound"][0],
+                   "max_abs_err": cgrid["k2_cgrid"]["err"],
+                   "launches_gridc": cgrid["gridc"]["launches"][
+                       "transport_fused"],
+                   "launches_dynpicard": cgrid["dynpicard"]["launches"][
+                       "transport_fused"]}},
         {"name": "tracer_fluxes", "route": "cuda",
          "source": "cice_tpu_torch/csrc/tracer_fluxes.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:261",
@@ -898,7 +1090,11 @@ def main() -> int:
          "ms_dense": k3["dense"]["ms"],
          "bound_ms_dense": k3["dense"]["bound"][0],
          "bound_ms_every_candidate": k3_all_bound,
-         "launches_baseline": on_base["tracer_fluxes"]},
+         "launches_baseline": on_base["tracer_fluxes"],
+         "cgrid": {"ms": cgrid["k3_cgrid"]["ms"],
+                   "plain_ms": cgrid["k3_cgrid"]["plain_ms"],
+                   "bound_ms": cgrid["k3_cgrid"]["bound"][0],
+                   "max_abs_err": cgrid["k3_cgrid"]["err"]}},
     ]
     out = {"kernels": results}
     # ridging passes on the main path's last state and deformation
@@ -928,7 +1124,7 @@ def main() -> int:
                                  "dyn": dyn_launches},
                        freshwater_residual=wres, ridge_passes=rdg["npass"],
                        transport_checks=tc, restart_history=rh,
-                       baseline=base), f,
+                       baseline=base, cgrid=cgrid), f,
                   indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

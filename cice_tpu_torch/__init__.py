@@ -10,7 +10,10 @@ PyTorch version.
 Ported so far: the full coupled step in the default physics (BL99
 thermodynamics, ccsm3 shortwave, similarity boundary layer, level ponds,
 linear ITD remap, frazil and lateral melt, B-grid EVP, exact incremental
-remapping, ridging, slab ocean) on the gx1 displaced-pole grid
+remapping, ridging, slab ocean) on the gx1 displaced-pole grid, and the
+other dynamics and transports: C- and CD-grid EVP (dynamics/evp_c.py), the
+implicit VP solver (dynamics/vp.py), EAP (dynamics/eap.py), upwind, van
+Leer and remap_q (dynamics/transport.py, dynamics/remap.py)
 (`config.gx1pop_step`), driven by `model.driver.Model.step` / `.run`; the
 kernels are the fused EVP subcycles (kernels/evp.py) and the one-pass and
 flux-only transport kernels (kernels/remap.py). The Model keeps the
@@ -26,8 +29,8 @@ file-less tripole and displaced-pole stand-ins and POP binaries, with
 cyclic, open, closed and tripole (U- or T-fold) boundaries. The CLI
 (`python -m cice_tpu_torch.cli run|test`) runs the reference's option sets,
 among them the gx3pop, gx1pop and tx1pop baselines on fixtures it writes
-(io/fixtures.py). Where a kernel cannot take a grid (tripole, y-cyclic) or
-a dtype, its dispatcher warns and runs the plain version.
+(io/fixtures.py). On the card a kernel that cannot take a grid (tripole,
+y-cyclic) or a dtype raises; a run names the plain engines instead.
 """
 
 from .config import Config, gx1pop_dyn, gx1pop_step

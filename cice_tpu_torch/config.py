@@ -210,7 +210,7 @@ class DynamicsConfig:
                                     # CUDA device with f32 state, the plain
                                     # path elsewhere) | 'xla' (plain PyTorch
                                     # path) | 'fused_pallas' (flux-only
-                                    # kernel, not ported) | 'fused_full'
+                                    # kernel) | 'fused_full'
                                     # (construct+flux+update one-pass)
     # implicit (VP) solver — reference ice_dyn_vp.F90 namelist section
     maxits_nonlin: int = 10

@@ -12,8 +12,10 @@ Gauss-Legendre in the segment parameter is exact for the cubic integrands.
 The plain path `construct_fields -> remap_fluxes -> update_fields` is the
 plain PyTorch version of the fused CUDA transport kernel
 (kernels/remap.py), which computes reconstruction, fluxes and update in one
-pass; only `edge_moments` runs outside it. Only the B-grid path is ported:
-C/CD edge areas wait for ROADMAP: C/CD, VP, EAP, upwind and vanleer.
+pass; only `edge_moments` runs outside it. On C and CD grids the
+trajectories start from means of the face velocities and the edge moments
+carry the Bentsen edge areas (uvelE * HTE * dt, vvelN * HTN * dt); the
+kernels take those moments as they are.
 """
 
 from __future__ import annotations
@@ -434,16 +436,30 @@ def pentagon_cell_moments(verts, edgearea=None):
     """Per-candidate-cell moments of the signed pentagon region.
 
     verts: 5 (x, y) tuples of (ny, nx) tensors in edge-local scaled
-    coordinates, ordered CL, CR, DR, DM, DL. `edgearea` (Bentsen
-    adjustment, C/CD grids) is not ported yet.
+    coordinates, ordered CL, CR, DR, DM, DL. With `edgearea` (the scaled
+    signed area, positive for transport toward +y: C and CD grids), DM
+    moves normal to the edge until the pentagon's signed area matches it
+    (the Bentsen edge-flux adjustment, reference locate_triangles); where
+    DR and DL share their x there is nothing to move, and the safe
+    denominator keeps the unselected quotient finite.
 
     Returns a (6, 10, ny, nx) tensor of moments in candidate-local
     coordinates, candidate axis ordered as `CANDS`."""
-    if edgearea is not None:
-        raise NotImplementedError(
-            "Bentsen edge-area adjustment (C/CD grids) is not ported yet "
-            "(ROADMAP: C/CD, VP, EAP, upwind and vanleer)")
     (xcl, ycl), (xcr, ycr), (xdr, ydr), (xdm, ydm), (xdl, ydl) = verts
+    if edgearea is not None:
+        pts = [(xcl, ycl), (xcr, ycr), (xdr, ydr), (xdm, ydm), (xdl, ydl)]
+        A0 = 0.0                                      # shoelace
+        for i in range(len(pts)):
+            x0, y0 = pts[i]
+            x1, y1 = pts[(i + 1) % len(pts)]
+            A0 = A0 + 0.5 * (x0 * y1 - x1 * y0)
+        # the CL->CR->DR->DM->DL loop of a positive transport has a
+        # negative shoelace area
+        dAdy = 0.5 * (xdr - xdl)                      # d(A0)/d(ydm)
+        delta = torch.where(dAdy.abs() > cst.puny,
+                            (-edgearea - A0) /
+                            torch.where(dAdy != 0.0, dAdy, 1.0), 0.0)
+        ydm = ydm + delta
 
     dtype, dev = xcl.dtype, xcl.device
     sy = torch.tensor([r[0] for r in _REGIONS], dtype=dtype,
@@ -782,6 +798,23 @@ def check_monotonicity(tmin, tmax, am_new, trm_new, table, tol=None):
 # top-level driver (reference horizontal_remap:3077 + transport_remap:252)
 # ---------------------------------------------------------------------------
 
+def corner_velocities_and_edge_areas(grid: Grid, state: State, grid_ice,
+                                     dt):
+    """(ucorn, vcorn, edgearea_e, edgearea_n): the velocities that trace
+    the corners back, and the Bentsen edge areas (None on the B grid). On
+    C and CD grids the corners take means of the prognostic face velocities
+    and the edge areas are uvelE * HTE * dt and vvelN * HTN * dt
+    (horizontal_remap:629-668)."""
+    if grid_ice not in ("C", "CD"):
+        return state.uvel, state.vvel, None, None
+    shc = lambda f, dj, di: shift(f, dj, di, bc=grid.bc,
+                                  loc=FIELD_LOC_CENTER,
+                                  ftype=FIELD_TYPE_VECTOR)
+    return (0.5 * (state.uvelE + shc(state.uvelE, 1, 0)),
+            0.5 * (state.vvelN + shc(state.vvelN, 0, 1)),
+            state.uvelE * grid.HTE * dt, state.vvelN * grid.HTN * dt)
+
+
 def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
                            grid_ice: str = "B", l_dp_midpt: bool = False,
                            conserv_check: bool = False,
@@ -802,10 +835,6 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
     off) and
     'neg_mass_depth', the most negative ocean-cell mass before the floor,
     negated (the JAX package reports only the flag)."""
-    if grid_ice in ("C", "CD"):
-        raise NotImplementedError(
-            "C/CD-grid transport is not ported yet (ROADMAP: C/CD, VP, EAP, "
-            "upwind and vanleer)")
     if flux_kernel not in ("xla", "fused_full", "fused_pallas"):
         raise ValueError(f"flux_kernel={flux_kernel!r}: expected 'xla', "
                          "'fused_full' or 'fused_pallas' ('auto' resolves "
@@ -813,8 +842,10 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
     table = build_flat_table(registry)
     am, trm = state_to_tracers(state, registry, table)
 
-    dxs, dys, oob = departure_points_scaled(grid, state.uvel, state.vvel,
-                                            dt, l_dp_midpt)
+    ucorn, vcorn, edgearea_e, edgearea_n = corner_velocities_and_edge_areas(
+        grid, state, grid_ice, dt)
+    dxs, dys, oob = departure_points_scaled(grid, ucorn, vcorn, dt,
+                                            l_dp_midpt)
     if conserv_check:
         asum0, atsum0 = global_sums(grid, am, trm, table)
     if monotonicity_check:
@@ -822,7 +853,7 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
 
     if flux_kernel == "fused_full":
         from ..kernels.remap import transport_fused
-        mom_n, mom_e = edge_moments(grid, dxs, dys)
+        mom_n, mom_e = edge_moments(grid, dxs, dys, edgearea_e, edgearea_n)
         am_pre, trm_new = transport_fused(grid, mom_n.contiguous(),
                                           mom_e.contiguous(), am, trm, table)
     else:
@@ -830,13 +861,15 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
                                                           table, grid.hm)
         if flux_kernel == "fused_pallas":
             from ..kernels.remap import tracer_fluxes_fused
-            mom_n, mom_e = edge_moments(grid, dxs, dys)
+            mom_n, mom_e = edge_moments(grid, dxs, dys, edgearea_e,
+                                        edgearea_n)
             mflxe, mflxn, mtflxe, mtflxn = tracer_fluxes_fused(
                 grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table,
                 tstack=tstack)
         else:
             mflxe, mflxn, mtflxe, mtflxn = remap_fluxes(
-                grid, dxs, dys, mc, mx, my, tc, tx, ty, table)
+                grid, dxs, dys, mc, mx, my, tc, tx, ty, table, edgearea_e,
+                edgearea_n)
         am_pre, trm_new = update_pre_floor(grid, am, trm, mflxe, mflxn,
                                            mtflxe, mtflxn, table)
     am_new, neg, depth = floor_mass(grid, am_pre)

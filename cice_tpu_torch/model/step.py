@@ -29,16 +29,30 @@ from ..columns.thermo_vertical import (adjust_enthalpy, bl99_salinity,
                                        melting_temps, temperature_changes,
                                        thickness_changes)
 from ..core.grid import Grid, grid_average_X2Y
+from ..dynamics import evp_c
 from ..dynamics.common import deformations_B, dyn_prep, evp_params
+from ..dynamics.eap import eap_solve
 from ..dynamics.evp import evp_ocean_stress, evp_solve
+from ..dynamics.transport import ADVECT
+from ..dynamics.vp import implicit_solver
 from .flux import Forcing, zeros_fluxout
 from .state import State, tracer_registry
 
 FBOT_MAX = 1000.0
 
 #: dynamics diagnostics that model_step copies into FluxOut.ncat_fluxes
-_DYN_NCAT_KEYS = ("dardg1ndt", "dardg2ndt", "dvirdgndt", "aparticn", "krdgn",
-                  "aredistn", "vredistn", "araftn", "vraftn", "dpnd_ridge")
+_DYN_NCAT_KEYS = (
+    "dardg1ndt", "dardg2ndt", "dvirdgndt", "aparticn", "krdgn", "aredistn",
+    "vredistn",
+    # the native E/N-point planes of the C and CD grids and their
+    # momentum-balance splits (_en_stress_splits)
+    "strintxE", "strintyN", "strintyE", "strintxN", "taubxE", "taubyN",
+    "taubyE", "taubxN", "strocnxE", "strocnyE", "strocnxN", "strocnyN",
+    "strairxE", "strairyE", "strairxN", "strairyN", "strcorxE", "strcoryE",
+    "strcorxN", "strcoryN", "strtltxE", "strtltyE", "strtltxN", "strtltyN",
+    "araftn", "vraftn", "dpnd_ridge",
+    # the EAP yield-surface stress
+    "yieldstress11", "yieldstress12", "yieldstress22")
 _CLEANUP_KEYS = ("fresh", "fsalt", "fhocn")
 
 
@@ -48,11 +62,32 @@ def _phase(timer, name):
     return contextlib.nullcontext() if timer is None else timer(name)
 
 
+#: the values of `dynamics.advection`: the exact remap, the transports of
+#: dynamics/transport.py, or no transport
+ADVECTIONS = ("remap", "none") + tuple(ADVECT)
+
+
 def check_ported(cfg) -> None:
-    """Raise for every option of the full step whose module is not ported,
-    naming the ROADMAP item that will port it."""
+    """Raise NotImplementedError for every option of the full step whose
+    module is not ported, naming the ROADMAP item that will port it, and
+    ValueError for the combinations the port refuses.
+
+    kdyn 2 (EAP) and 3 (VP) are B-grid solvers: on a C or CD grid the
+    JAX package runs them on the corner velocities while its C-grid
+    transport reads the face velocities uvelE/vvelN, which nothing then
+    updates. The port refuses that combination. An unknown `advection`
+    is refused too (the JAX package runs upwind for any name it does not
+    know, 'none' included); 'none' moves nothing, as in the reference."""
     t, d = cfg.tracers, cfg.dynamics
-    A5 = "ROADMAP A5: C/CD, VP, EAP, upwind and vanleer"
+    if cfg.grid.grid_ice in ("C", "CD") and d.kdyn in (2, 3):
+        raise ValueError(
+            f"kdyn={d.kdyn} ({'EAP' if d.kdyn == 2 else 'VP'}) on "
+            f"grid_ice={cfg.grid.grid_ice!r}: the solver steps the corner "
+            "velocities while the C-grid transport moves the ice with the "
+            "face velocities, which it leaves unchanged")
+    if d.advection not in ADVECTIONS:
+        raise ValueError(f"dynamics.advection={d.advection!r}: expected one "
+                         f"of {ADVECTIONS}")
     A6 = "ROADMAP A6: column options"
     checks = (
         (cfg.shortwave.shortwave.startswith("dEdd"),
@@ -69,11 +104,6 @@ def check_ported(cfg) -> None:
          "topographic and sea-level ponds", A6),
         (cfg.zbgc.skl_bgc or cfg.zbgc.z_tracers,
          "skeletal-layer and vertical biogeochemistry", A6),
-        (cfg.grid.grid_ice != "B" and d.kdyn >= 1,
-         f"grid_ice={cfg.grid.grid_ice!r} dynamics", A5),
-        (d.kdyn in (2, 3), f"kdyn={d.kdyn} (EAP/VP)", A5),
-        (d.ktransport >= 1 and d.advection != "remap",
-         f"advection={d.advection!r}", A5),
         (d.evp_algorithm == "wide_halo", "evp_algorithm='wide_halo'",
          "ROADMAP A8: multi-GPU evp_wide over torch.distributed"),
     )
@@ -311,32 +341,124 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     return new_state, agg, hicen_old
 
 
+def _en_stress_splits(prepc, extra, uvelE, vvelE, uvelN, vvelN):
+    """The E/N-point momentum-balance splits for history (the reference's
+    strair*/strcor*/strtlt* E/N fields). The prep folds air stress and the
+    geostrophic tilt into forcexE/forceyN: unfold them here, and take the
+    Coriolis terms at the final velocities. `extra` (CD only) gives the
+    cross-component forcings."""
+    fmE, fmN = prepc.fmE, prepc.fmN
+    out = {
+        "strairxE": prepc.forcexE + fmE * prepc.vocnE,
+        "strtltxE": -fmE * prepc.vocnE,
+        "strairyN": prepc.forceyN - fmN * prepc.uocnN,
+        "strtltyN": fmN * prepc.uocnN,
+        "strcorxE": fmE * vvelE,
+        "strcoryN": -fmN * uvelN,
+    }
+    if extra is not None:
+        out.update({
+            "strairyE": extra.forceyE - fmE * prepc.uocnE,
+            "strtltyE": fmE * prepc.uocnE,
+            "strcoryE": -fmE * uvelE,
+            "strairxN": extra.forcexN + fmN * prepc.vocnN,
+            "strtltxN": -fmN * prepc.vocnN,
+            "strcorxN": fmN * vvelN,
+        })
+    return out
+
+
+def _step_dyn_c(cfg, grid: Grid, state: State, fc: Forcing, strairx_T,
+                strairy_T, dt: float, p, strength):
+    """The C and CD grids' EVP (kdyn=1): face velocities, the stress state
+    in slot 0 (T points) and slot 1 (U points, CD only) of the 4-corner
+    arrays, the U-point exports and the native E/N planes."""
+    d = cfg.dynamics
+    prepc = evp_c.dyn_prep_c(grid, d, dt, aice=state.aice, vice=state.vice,
+                             vsno=state.vsno, uvelE=state.uvelE,
+                             vvelN=state.vvelN, strairxT=strairx_T,
+                             strairyT=strairy_T, uocn_T=fc.uocn,
+                             vocn_T=fc.vocn)
+    if cfg.grid.grid_ice == "CD":
+        extra = evp_c.dyn_prep_cd(grid, d, dt, prepc, vvelE=state.vvelE,
+                                  uvelN=state.uvelN, strairxT=strairx_T,
+                                  strairyT=strairy_T)
+        m = prepc.iceTmask
+        init = evp_c.CDEvpState(
+            uvelE=prepc.uvelE_init, vvelE=extra.vvelE_init,
+            uvelN=extra.uvelN_init, vvelN=prepc.vvelN_init,
+            stresspT=torch.where(m, state.stressp[0], 0.0),
+            stressmT=torch.where(m, state.stressm[0], 0.0),
+            stress12T=torch.where(m, state.stress12[0], 0.0),
+            stresspU=state.stressp[1], stressmU=state.stressm[1],
+            stress12U=state.stress12[1])
+        fin, uU, vU = evp_c.evp_cd_solve(grid, p, prepc, extra, strength,
+                                         init)
+        slots = {"stressp": (fin.stresspT, fin.stresspU),
+                 "stressm": (fin.stressmT, fin.stressmU),
+                 "stress12": (fin.stress12T, fin.stress12U)}
+        vvelE, uvelN = fin.vvelE, fin.uvelN
+        faces = dict(vvelE=vvelE, uvelN=uvelN)
+    else:
+        extra = None
+        fin, uU, vU = evp_c.evp_c_solve(grid, p, prepc, strength,
+                                        state.stressp[0], state.stressm[0],
+                                        state.stress12[0])
+        slots = {"stressp": (fin.stresspT,), "stressm": (fin.stressmT,),
+                 "stress12": (fin.stress12U,)}
+        vvelE = grid_average_X2Y("S", fin.vvelN, "N", "E", grid)
+        uvelN = grid_average_X2Y("S", fin.uvelE, "E", "N", grid)
+        faces = {}
+    stresses = {}
+    for k, new in slots.items():
+        st = getattr(state, k).clone()
+        for slot, plane in enumerate(new):
+            st[slot] = plane
+        stresses[k] = st
+    divu, shear, Delta = evp_c.deformations_C(grid, fin.uvelE, fin.vvelN, p)
+    state = state.replace(uvel=uU, vvel=vU, uvelE=fin.uvelE,
+                          vvelN=fin.vvelN, **faces, **stresses)
+    fin_d = evp_c.c_dyn_finish(grid, prepc, fin.uvelE, fin.vvelN,
+                               fin.stresspT, fin.stressmT, fin.stress12U,
+                               **faces)
+    diags = {k: fin_d[k] for k in ("strintx", "strinty", "taubx", "tauby",
+                                   "strocnx", "strocny")}
+    diags.update(divu=divu, shear=shear, Delta=Delta, strength=strength)
+    diags.update({k: fin_d[k] for k in evp_c.EN_PLANES})
+    if extra is not None:
+        diags.update(evp_c.cd_cross_planes(grid, prepc, fin))
+    diags.update(_en_stress_splits(prepc, extra, fin.uvelE, vvelE, uvelN,
+                                   fin.vvelN))
+    return state, diags
+
+
 def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                    strairx_T, strairy_T, dt: float):
-    """Horizontal dynamics, B-grid EVP (reference step_dyn_horiz:969,
-    kdyn=1). evp_algorithm 'fused_pallas' runs the fused CUDA EVP kernel
-    (kernels/evp.py; its plain version on CPU tensors), 'standard_2d' the
-    plain PyTorch loop."""
+    """Horizontal dynamics (reference step_dyn_horiz:969), in the JAX
+    package's order of dispatch: on a C or CD grid, kdyn=1 runs the
+    C-grid EVP (dynamics/evp_c.py); then on the B grid kdyn=3 the implicit
+    VP solver, kdyn=2 EAP, and kdyn=1 the EVP algorithm. `evp_algorithm`
+    chooses among B-grid solvers only: 'fused_pallas' runs the fused CUDA
+    EVP kernel (kernels/evp.py; its plain version on CPU tensors),
+    'standard_2d' the plain PyTorch loop; on a C grid both run
+    `evp_c_solve`, as in the JAX package (no kernel computes the C-grid
+    EVP, so this is not a fallback)."""
     cfg = ms.cfg
     d = cfg.dynamics
-    if cfg.grid.grid_ice != "B":
-        raise NotImplementedError(
-            f"grid_ice={cfg.grid.grid_ice!r} dynamics are not ported yet "
-            "(ROADMAP: C/CD, VP, EAP, upwind and vanleer)")
-    if d.kdyn != 1:
-        raise NotImplementedError(
-            f"kdyn={d.kdyn} (EAP/VP) is not ported yet (ROADMAP: C/CD, VP, "
-            "EAP, upwind and vanleer)")
     if d.evp_algorithm == "wide_halo":
         raise NotImplementedError(
             "evp_algorithm='wide_halo' is not ported yet (ROADMAP: "
             "multi-GPU evp_wide over torch.distributed)")
-    if cfg.forcing.formdrag:
-        raise NotImplementedError(
-            "form drag is not ported yet (ROADMAP A6: column options)")
     p = evp_params(d, dt)
     strength = ice_strength(state.aicen, state.vicen, state.aice, state.vice,
                             d)
+    if cfg.grid.grid_ice in ("C", "CD"):
+        check_ported(cfg)    # EAP and VP are B-grid solvers
+        return _step_dyn_c(cfg, grid, state, fc, strairx_T, strairy_T, dt,
+                           p, strength)
+    if cfg.forcing.formdrag:
+        raise NotImplementedError(
+            "form drag is not ported yet (ROADMAP A6: column options)")
     prep = dyn_prep(grid, d, dt, aice=state.aice, vice=state.vice,
                     vsno=state.vsno, aiceU_prev_mask=state.iceUmask,
                     uvel=state.uvel, vvel=state.vvel,
@@ -346,14 +468,26 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     uocnU = grid_average_X2Y("S", fc.uocn, "T", "U", grid)
     vocnU = grid_average_X2Y("S", fc.vocn, "T", "U", grid)
 
-    if d.evp_algorithm == "fused_pallas":
-        from ..kernels.evp import evp_solve_fused
-        solve = evp_solve_fused
+    extra_diags = {}
+    if d.kdyn == 3:
+        u, v, sp, sm, s12, strintx, strinty, taubx, tauby, _ = \
+            implicit_solver(grid, d, prep, strength, uocn=uocnU,
+                            vocn=vocnU, dt=dt)
+    elif d.kdyn == 2:
+        (u, v, sp, sm, s12, strintx, strinty, taubx, tauby, a11, a12,
+         extra_diags) = eap_solve(grid, p, prep, strength, state.stressp,
+                                  state.stressm, state.stress12, uocn=uocnU,
+                                  vocn=vocnU, a11=state.a11, a12=state.a12)
+        state = state.replace(a11=a11, a12=a12)
     else:
-        solve = evp_solve
-    u, v, sp, sm, s12, strintx, strinty, taubx, tauby = solve(
-        grid, p, prep, strength, state.stressp, state.stressm,
-        state.stress12, uocn=uocnU, vocn=vocnU)
+        if d.evp_algorithm == "fused_pallas":
+            from ..kernels.evp import evp_solve_fused
+            solve = evp_solve_fused
+        else:
+            solve = evp_solve
+        u, v, sp, sm, s12, strintx, strinty, taubx, tauby = solve(
+            grid, p, prep, strength, state.stressp, state.stressm,
+            state.stress12, uocn=uocnU, vocn=vocnU)
 
     strocnx, strocny = evp_ocean_stress(prep, u, v, uocnU, vocnU)
     divu, shear, Delta = deformations_B(grid, u, v, p, dt)
@@ -361,7 +495,8 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                           stress12=s12, iceUmask=prep.iceUmask)
     dyn_diags = dict(strintx=strintx, strinty=strinty, taubx=taubx,
                      tauby=tauby, strocnx=strocnx, strocny=strocny,
-                     divu=divu, shear=shear, Delta=Delta, strength=strength)
+                     divu=divu, shear=shear, Delta=Delta, strength=strength,
+                     **extra_diags)
     return state, dyn_diags
 
 
@@ -412,11 +547,13 @@ def step_dyn_transport(ms: ModelStatic, grid: Grid, state: State,
         with _phase(timer, "dyn"):
             state, dyn = step_dyn_horiz(ms, grid, state, fc, strairx_T,
                                         strairy_T, dt_dyn)
-        if cfg.dynamics.ktransport >= 1:
-            if cfg.dynamics.advection != "remap":
-                raise NotImplementedError(
-                    f"advection={cfg.dynamics.advection!r} is not ported "
-                    "yet (ROADMAP: C/CD, VP, EAP, upwind and vanleer)")
+        advection = cfg.dynamics.advection
+        if cfg.dynamics.ktransport >= 1 and advection in ADVECT:
+            with _phase(timer, "transport"):
+                state = ADVECT[advection](grid, state, ms.registry, fc.Tf,
+                                          dt_dyn,
+                                          grid_ice=cfg.grid.grid_ice)
+        elif cfg.dynamics.ktransport >= 1 and advection == "remap":
             from ..dynamics.remap_exact import horizontal_remap_exact
             fk = resolve_remap_kernel(cfg, grid, state.aicen.dtype)
             with _phase(timer, "transport"):

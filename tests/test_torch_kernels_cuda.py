@@ -685,3 +685,134 @@ def test_y_cyclic_model_raises_with_kernels_and_steps_on_named_plain_engines(
     torch.cuda.synchronize()
     assert _launches() == before
     assert bool(torch.isfinite(m.state.aicen).all())
+
+
+# ---------------------------------------------------------------------------
+# C and CD grids: K2 and K3 on moments with the Bentsen edge areas, a
+# gridc restart, and the VP solver without host reads
+# ---------------------------------------------------------------------------
+
+def _cgrid_moments(cuda, grid_ice, nx=48, ny=40):
+    """One C- or CD-grid EVP solve on gx1pop_dyn's grid, then the edge
+    moments of the exact remap from the face velocities (corner means and
+    Bentsen edge areas): (model, state, (mom_n, mom_e))."""
+    cfg = tconfig.gx1pop_dyn(nx, ny).with_overrides(**{
+        "grid.grid_ice": grid_ice})
+    m = Model(cfg, device=cuda)
+    g, dt = m.grid, cfg.setup.dt
+    st, _ = step_dyn_horiz(m.static, g, m.state, m.forcing,
+                           m.forcing.strax + 0.1, m.forcing.stray + 0.05, dt)
+    assert float(st.uvelE.abs().max()) > 1e-3
+    uc, vc, ea_e, ea_n = rx.corner_velocities_and_edge_areas(g, st,
+                                                             grid_ice, dt)
+    dxs, dys, _ = rx.departure_points_scaled(g, uc, vc, dt, True)
+    moms = tuple(t.contiguous() for t in rx.edge_moments(g, dxs, dys, ea_e,
+                                                          ea_n))
+    return m, st, moms
+
+
+@pytest.mark.parametrize("size", [(48, 40), (320, 384)], ids=["small", "gx1"])
+@pytest.mark.parametrize("grid_ice", ["C", "CD"])
+def test_kernels_on_c_grid_moments_exact(cuda, grid_ice, size):
+    """K2 and K3 take the moments as they come: on C- and CD-grid moments
+    both equal their plain versions bit for bit."""
+    m, st, (mom_n, mom_e) = _cgrid_moments(cuda, grid_ice, *size)
+    g = m.grid
+    table = rx.build_flat_table(m.static.registry)
+    am, trm = rx.state_to_tracers(st, m.static.registry, table)
+    before = (kremap.launches, kremap.flux_launches)
+    ref_am, ref_trm = kremap.transport_plain(g, mom_n, mom_e, am, trm, table)
+    got_am, got_trm = kremap.transport_fused(g, mom_n, mom_e, am, trm, table)
+    mc, mx, my, tc, tx, ty, tstack = rx.construct_fields(g, am, trm, table,
+                                                         g.hm)
+    args = (g, mom_n, mom_e, mc, mx, my, tc, tx, ty, table)
+    ref = kremap.tracer_fluxes_plain(*args)
+    got = kremap.tracer_fluxes_fused(*args, tstack=tstack)
+    torch.cuda.synchronize()
+    assert (kremap.launches, kremap.flux_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert float((got_am - ref_am).abs().max()) == 0.0
+    assert float((got_trm - ref_trm).abs().max()) == 0.0
+    _fluxes_exact(got, ref)
+
+
+def test_gridc_run_continues_bit_for_bit_on_the_card(cuda, tmp_path):
+    """gridc through K2 ('auto'): a run continued from a restart equals the
+    uninterrupted run bit for bit."""
+    import os
+    import shutil
+    from cice_tpu_torch.model.state import state_leaves
+    restart = os.path.join(str(tmp_path), "restart")
+    cfg = tconfig.gx1pop_step(48, 40, remap_kernel="auto").with_overrides(**{
+        "grid.grid_ice": "C", "dynamics.ndte": 40, "setup.dumpfreq": "1",
+        "setup.dumpfreq_n": 2, "setup.restart_dir": restart,
+        "setup.pointer_file": os.path.join(restart, "ice.restart_file")})
+    before = kremap.launches
+    a = Model(cfg, device=cuda)
+    a.run(2)
+    ptr = shutil.copy(cfg.setup.pointer_file,
+                      os.path.join(str(tmp_path), "pointer"))
+    a.run(2)
+    assert kremap.launches == before + 4
+    b = Model(cfg.with_overrides(**{"setup.runtype": "continue",
+                                    "setup.pointer_file": ptr}), device=cuda)
+    b.run(2)
+    for x, y in zip(state_leaves(a.state), state_leaves(b.state)):
+        assert torch.equal(x, y)
+    assert float(a.state.uvelE.abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("algo", ["picard", "anderson"])
+def test_vp_solver_reads_nothing_on_the_host(cuda, algo):
+    """implicit_solver on the card under sync debug mode 'error': any
+    host synchronisation inside it raises."""
+    from cice_tpu_torch.dynamics.vp import implicit_solver
+    cfg = tconfig.gx1pop_dyn(48, 40).with_overrides(**{
+        "dynamics.kdyn": 3, "dynamics.algo_nonlin": algo,
+        "dynamics.maxits_nonlin": 3, "dynamics.dim_fgmres": 10,
+        "dynamics.maxits_fgmres": 20, "dynamics.dim_pgmres": 3,
+        "dynamics.maxits_pgmres": 3})
+    m = Model(cfg, device=cuda)
+    g, d, dt = m.grid, cfg.dynamics, cfg.setup.dt
+    s, fc = m.state, m.forcing
+    prep = dyn_prep(g, d, dt, aice=s.aice, vice=s.vice, vsno=s.vsno,
+                    aiceU_prev_mask=s.iceUmask, uvel=s.uvel, vvel=s.vvel,
+                    strairxT=fc.strax + 0.1, strairyT=fc.stray + 0.05,
+                    uocn_T=fc.uocn, vocn_T=fc.vocn, ss_tltx_T=fc.ss_tltx,
+                    ss_tlty_T=fc.ss_tlty)
+    strength = ice_strength(s.aicen, s.vicen, s.aice, s.vice, d)
+    z = torch.zeros_like(s.aice)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = implicit_solver(g, d, prep, strength, uocn=z, vocn=z, dt=dt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out[0]).all())
+    assert float(out[0].abs().max()) > 1e-3
+
+
+def test_eap_on_the_card_against_the_cpu(cuda):
+    """One EAP dynamics step at 48x40 (ndte=120, f32) on the card and on
+    the CPU from the same state. The lookup truncates a float ratio to a
+    table index, so a one-ulp difference (atan2, sqrt and exp differ
+    between the two math libraries) may pick a neighbouring entry: the
+    test prints how far the two move apart and holds them within 1e-1 of
+    the largest velocity."""
+    cfg = tconfig.gx1pop_dyn(48, 40).with_overrides(**{"dynamics.kdyn": 2})
+    outs = []
+    for dev in ("cpu", cuda):
+        m = Model(cfg, device=dev)
+        fc = m.forcing
+        st, dyn = step_dyn_horiz(m.static, m.grid, m.state, fc,
+                                 fc.strax + 0.1, fc.stray + 0.05,
+                                 cfg.setup.dt)
+        outs.append({k: getattr(st, k).cpu() for k in
+                     ("uvel", "vvel", "stressp", "a11", "a12")})
+    rel = {k: float((outs[1][k] - outs[0][k]).abs().max()) /
+           max(float(outs[0][k].abs().max()), 1e-30) for k in outs[0]}
+    print(f"EAP card against CPU after one step, max |diff| / max |CPU|: "
+          f"{rel}")
+    assert all(bool(torch.isfinite(v).all()) for v in outs[1].values())
+    assert float(outs[0]["uvel"].abs().max()) > 1e-3
+    assert rel["uvel"] < 1e-1 and rel["vvel"] < 1e-1

@@ -439,6 +439,7 @@ def test_unported_engines_raise():
     with pytest.raises(ValueError, match="flux_kernel"):
         trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf), 60.0,
                                    flux_kernel="fused")
-    with pytest.raises(NotImplementedError, match="C/CD"):
-        trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf), 60.0,
-                                   grid_ice="C")
+    # the C-grid transport is ported (tests/test_torch_remap_cgrid.py)
+    new, _ = trx.horizontal_remap_exact(tg, ts, reg, torch.as_tensor(Tf),
+                                        60.0, grid_ice="C")
+    assert bool(torch.isfinite(new.aicen).all())
