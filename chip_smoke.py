@@ -65,7 +65,21 @@ per source, started together), then:
      step and K1 never; one step each of gx1pop with gridcd, eap,
      dynanderson, upwind, vanleer and advection=remap_q (finite, a clean
      `check_state`, K2 once where the exact remap runs, else no launch);
-     box2001_config (80x80, upwind) for 24 steps.
+     box2001_config (80x80, upwind) for 24 steps;
+ 11. the column physics of CICE's standard configuration at 320x384:
+     gx1pop_step(remap_kernel='auto') with mushy thermodynamics and
+     delta-Eddington shortwave beside BL99 and ccsm3 (ms per step, the
+     phases by CUDA events, PyTorch operations and host reads per step);
+     K1 and K2
+     against their plain versions on the mushy, dEdd state, max abs error
+     0.0, each timed beside its bound; gx1pop,evp1d,mushy,dedd for a day
+     through the baseline runner (K1 and K2 once per step) with the
+     freshwater and area checks on every step and the ice salt budget
+     against the salt flux to the ocean; three steps of gx1pop,evp1d alone
+     and with each of snwgrain, fsd12, pondtopo, pondsealvl, saltflux, fdrag,
+     alt05 and alt06 (finite, aice <= 1, extent in both hemispheres, a
+     clean `check_state`, K1 and K2 once per step; ms, peak memory and
+     host reads per step).
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -79,7 +93,9 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import os
 import sys
 import time
@@ -332,7 +348,9 @@ def baseline_runner(dev, smi, reset_counters, read_counters):
     files in its own directory; `run(opts, label, sets, expect)` runs it
     through `cli.baseline_model` with history and restarts, checks the
     oracle, `check_state` and the launches, prints the comparison with
-    baselines/r05/<label>.json and the host costs, and returns them."""
+    baselines/r05/<label>.json and the host costs, and returns them.
+    `each_step(m)`, if given, is called after every step, outside its
+    timing."""
     import argparse
     import shutil
     import statistics
@@ -353,7 +371,7 @@ def baseline_runner(dev, smi, reset_counters, read_counters):
             f"setup.pointer_file={d}/restart/ice.restart_file"]
         return cli.build_config(argparse.Namespace(opts=opts, set=sets))
 
-    def run(opts, label, sets, expect):
+    def run(opts, label, sets, expect, each_step=None):
         m = cli.baseline_model(cfg_for(opts, label, sets), dev)
         plain_evp_ms = None
         if label == "tx1pop":
@@ -380,6 +398,8 @@ def baseline_runner(dev, smi, reset_counters, read_counters):
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
             wrote.append(len(files["history"]) + len(files["restart"]) > n)
+            if each_step is not None:
+                each_step(m)
             return out
 
         m.write_restart = timed("restart", write_restart)
@@ -651,6 +671,233 @@ def c_grid_and_other_dynamics(dev, smi, reset_counters, read_counters):
         if not fin or any(launches.values()):
             fail("box2001_config: non-finite state or a kernel launched")
         out["box2001_s"] = wall
+    finally:
+        shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
+    return out
+
+
+MUSHY_DEDD = {"thermo.ktherm": 2, "thermo.tfrz_option": "mushy",
+              "shortwave.shortwave": "dEdd"}
+#: the other column option sets of phase 11 (c), on top of gx1pop,evp1d
+COLUMN_SETS = ("snwgrain", "fsd12", "pondtopo", "pondsealvl", "saltflux",
+               "fdrag", "alt05", "alt06")
+
+
+def column_physics(dev, smi, reset_counters, read_counters):
+    """Phase 11: the column physics of CICE's standard configuration at
+    gx1pop's full width. (a) gx1pop_step(remap_kernel='auto') with mushy
+    thermodynamics and delta-Eddington shortwave beside BL99 and ccsm3:
+    3 warm steps, 2 timed by phase, one counted in PyTorch operations; K1
+    and K2 against their plain versions on the mushy, dEdd state (max abs
+    error 0.0), timed; (b) gx1pop,evp1d,mushy,dedd for a day through the
+    baseline runner with the conservation checks on each step and the
+    ice salt budget; (c) three steps of gx1pop,evp1d alone and with each
+    set of COLUMN_SETS (the second timed and its peak memory taken, the
+    third's host reads counted)."""
+    import shutil
+
+    import torch
+
+    from cice_tpu_torch import constants as cst
+    from cice_tpu_torch import config as C
+    from cice_tpu_torch.dynamics.evp import evp_solve
+    from cice_tpu_torch.kernels import evp as kevp, remap as kremap
+    from cice_tpu_torch.measure import (bound_ms, count_host_reads,
+                                        count_ops, evp_state_problem,
+                                        timed_ms, transport_state_problem)
+    from cice_tpu_torch.model.diagnostics import (check_state,
+                                                  hemispheric_budgets,
+                                                  runtime_diags)
+    from cice_tpu_torch.model.driver import Model
+
+    out = {}
+    k12 = lambda n: {"evp_fused": n, "transport_fused": n,
+                     "tracer_fluxes": 0}
+
+    # ---- (a) the step with mushy + dEdd beside BL99 + ccsm3 -------------
+    def timed_steps(cfg, what):
+        m = Model(cfg, device=dev)
+        m.run(3)
+        timer = PhaseTimer()
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run(2, timer=timer)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 2
+        launches = read_counters()
+        phase = {k: v / 2 for k, v in timer.totals().items()}
+        ops = count_ops(lambda: m.step())
+        reads = count_host_reads(lambda: m.step())
+        torch.cuda.synchronize()
+        print(f"{what} at gx1pop (320x384, f32, K1 + K2) on {smi}: "
+              f"{step_ms:.3f} ms per step (host clock, 2 steps after 3), "
+              f"{ops} PyTorch operations and {reads} host reads per step, "
+              f"launches {launches}; "
+              "phases by CUDA events (ms per step): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phase.items()))
+        if launches != k12(2):
+            fail(f"{what}: launches {launches}, expected {k12(2)}")
+        return m, dict(step_ms=step_ms, phase_ms=phase, ops=ops,
+                       reads=reads, launches=launches)
+
+    base_cfg = C.gx1pop_step(remap_kernel="auto")
+    _, out["bl99_ccsm3"] = timed_steps(base_cfg, "BL99 + ccsm3")
+    m, out["mushy_dedd"] = timed_steps(base_cfg.with_overrides(**MUSHY_DEDD),
+                                       "mushy + dEdd")
+    dt = m.cfg.setup.dt
+    args, kw = evp_state_problem(m.static, m.grid, m.state, m.forcing,
+                                 m.flux.strairx, m.flux.strairy, dt)
+    ref = evp_solve(*args, **kw)
+    got = kevp.evp_solve_fused(*args, **kw)
+    targs, moving = transport_state_problem(m.static, m.grid, m.state, dt)
+    ref2 = kremap.transport_plain(*targs)
+    got2 = kremap.transport_fused(*targs)
+    torch.cuda.synchronize()
+    err = lambda g_, r_: max(float((a - b).abs().max())
+                             for a, b in zip(g_, r_))
+    k1_err, k2_err = err(got, ref), err(got2, ref2)
+    speed = float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max())
+    table = targs[-1]
+    print(f"K1 and K2 on the mushy, dEdd state at gx1pop: max |u,v| "
+          f"{speed:.3e} m/s, max departure {moving:.3e} cells, NT="
+          f"{len(table)} ({', '.join(sorted({t.name for t in table}))}); "
+          f"K1 max abs error {k1_err} against evp_solve, K2 {k2_err} "
+          "against transport_plain")
+    if not (speed > 1e-3 and moving > 1e-4 and k1_err == 0.0
+            and k2_err == 0.0):
+        fail("K1 or K2 differs from its plain version on the mushy, dEdd "
+             "state")
+    ny, nx = m.grid.shape
+    ncat = targs[3].shape[0] - 1
+    active, needed = kremap.work_fractions(*targs[:3])
+    k2 = dict(ms=timed_ms(lambda: kremap.transport_fused(*targs), 10),
+              plain_ms=timed_ms(lambda: kremap.transport_plain(*targs), 3),
+              bound=bound_ms(*kremap.bound_bytes_flops(
+                  table, ncat, ny, nx, active, needed)), err=k2_err)
+    k1 = dict(ms=timed_ms(lambda: kevp.evp_solve_fused(*args, **kw), 5),
+              plain_ms=timed_ms(lambda: evp_solve(*args, **kw), 2),
+              bound=bound_ms(*kevp.bound_bytes_flops(ny, nx,
+                                                     args[1].ndte)),
+              err=k1_err)
+    for nm, k in (("K1", k1), ("K2", k2)):
+        print(f"{nm} on the mushy, dEdd state: kernel {k['ms']:.4f} ms, "
+              f"plain {k['plain_ms']:.3f} ms per call; bound "
+              f"{k['bound'][0]:.4f} ms by {k['bound'][1]}")
+    out.update(k1=k1, k2=k2, k2_active=active, k2_needed=needed,
+               nt=len(table))
+    del m, args, kw, targs, ref, got, ref2, got2
+
+    cfg_for, run = baseline_runner(dev, smi, reset_counters, read_counters)
+    try:
+        # ---- (b) one day of gx1pop,evp1d,mushy,dedd ---------------------
+        # the budgets from the state before and after each step (Model's
+        # own conservation check would stop the run at the exact remap's
+        # known -7.7e-11 ice-edge cell, ROADMAP section C; the transport
+        # checks are kept and the negative depth bounded, as in phase 5)
+        rec = dict(salt=[], fsalt=[], water=[], area=[], neg=[], sice=[],
+                   prev=None)
+
+        def budgets(bm):
+            g = bm.grid
+            w = (g.tarea * g.hm).double()
+            st = bm.state
+            rec["salt"].append(float(torch.sum(
+                cst.rhoi * 1e-3 * (st.trcrn["sice"].double().mean(1) *
+                                   st.vicen.double()).sum(0) * w)))
+            rec["fsalt"].append(float(torch.sum(bm.flux.fsalt.double() * w))
+                                * bm.cfg.setup.dt)
+            if rec["prev"] is not None:
+                b = hemispheric_budgets(
+                    g, rec["prev"], st, bm.flux, bm.forcing,
+                    bm.cfg.setup.dt,
+                    frazil_in_fresh=bm.cfg.forcing.update_ocn_f,
+                    pond_lvl=bm.cfg.tracers.tr_pond_lvl)
+                rec["water"].append(abs(float(b["water_residual"])) / max(
+                    abs(float(b["dM"])), abs(float(b["water_in"])), 1.0))
+            rec["prev"] = st
+            rec["area"].append(float(bm.tchecks["cons_err_area"]))
+            rec["neg"].append(float(bm.tchecks["neg_mass_depth"]))
+            rec["sice"].append((float(st.trcrn["sice"].min()),
+                                float(st.trcrn["sice"].max())))
+
+        day = run("gx1pop,evp1d,mushy,dedd", "gx1pop+mushy+dedd",
+                  ["setup.npt=1", "setup.conserv_check=true",
+                   "setup.diagfreq=0"], k12(24), each_step=budgets)
+        rec.pop("prev")
+        # the ice salt change against the salt flux to the ocean over
+        # steps 2..24 (the flux of a step leaves during that step)
+        dsalt = rec["salt"][-1] - rec["salt"][0]
+        out_salt = sum(rec["fsalt"][1:])
+        resid = dsalt + out_salt
+        smin = min(x for x, _ in rec["sice"])
+        smax = max(x for _, x in rec["sice"])
+        print(f"gx1pop,evp1d,mushy,dedd for a day on {smi}: freshwater "
+              f"residual / budget at most {max(rec['water']):.3e} (1 % "
+              f"rule), transport area error at most {max(rec['area']):.3e}"
+              f" (1e-5), negative mass before the floor at most "
+              f"{max(rec['neg']):.3e} deep (1e-9); ice salt "
+              f"{rec['salt'][0]:.6e} -> {rec['salt'][-1]:.6e} kg, salt to "
+              "the ocean "
+              f"{out_salt:.6e} kg, residual {resid:.3e} kg "
+              f"({resid / max(abs(dsalt), 1.0):.3e} of the change; "
+              "saltflux_option='constant' books melt and growth at "
+              f"ice_ref_salinity); sice in [{smin:.3f}, {smax:.3f}] g/kg")
+        if not (max(rec["water"]) <= 1e-2 and max(rec["area"]) <= 1e-5
+                and max(rec["neg"]) <= 1e-9
+                and all(map(math.isfinite, rec["salt"] + rec["fsalt"]))
+                and 0.0 <= smin and smax <= 200.0):
+            fail("gx1pop,evp1d,mushy,dedd: a budget or a salinity is off")
+        out["day"] = dict(day, water_max=max(rec["water"]),
+                          area_max=max(rec["area"]),
+                          neg_mass_depth_max=max(rec["neg"]),
+                          salt_change=dsalt,
+                          salt_to_ocean=out_salt, salt_residual=resid,
+                          sice_range=(smin, smax))
+        # ---- (c) three steps of each other option set -------------------
+        # gx1pop,evp1d alone first: the reference for the peak memory and
+        # the host reads of the sets
+        out["sets"] = {}
+        for opt in ("",) + COLUMN_SETS:
+            label = f"gx1pop_evp1d_{opt or 'alone'}"
+            sm = Model(cfg_for("gx1pop,evp1d" + (f",{opt}" if opt else ""),
+                               label, []), device=dev)
+            gc.collect()
+            reset_counters()
+            sm.step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            sm.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
+            launches = read_counters()
+            reads = count_host_reads(lambda: sm.step())
+            st = sm.state
+            fin = all(bool(torch.isfinite(t).all()) for t in (
+                st.aicen, st.vicen, st.vsnon, st.uvel, st.vvel, st.sst,
+                *st.trcrn.values()))
+            d = {k: float(v) for k, v in runtime_diags(sm.grid, st).items()}
+            cs = {k: float(v) for k, v in check_state(st).items()}
+            ok = (fin and d["aice_max"] <= 1.0 + 1e-6 and d["extent_nh"] > 0
+                  and d["extent_sh"] > 0 and not cs["unstable"]
+                  and not cs["nonfinite"] and launches == k12(2))
+            print(f"gx1pop,evp1d{',' + opt if opt else ''} on {smi}: "
+                  f"{ms:.1f} ms for the second"
+                  f" step (host clock), {peak_mb:.1f} MB allocated above "
+                  f"the state at its peak, {reads} host reads in the third,"
+                  f" launches {launches}, finite {fin}, "
+                  f"aice max {d['aice_max']:.4f}, extent nh "
+                  f"{d['extent_nh']:.3e} sh {d['extent_sh']:.3e}, "
+                  f"check_state {cs}: {'PASS' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"gx1pop,evp1d,{opt}: the oracle failed")
+            out["sets"][opt or "alone"] = dict(ms=ms, peak_mb=peak_mb,
+                                               reads=reads,
+                                               launches=launches)
+            del sm
     finally:
         shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
     return out
@@ -1053,8 +1300,14 @@ def main() -> int:
     # ---- C/CD grids, VP, EAP and the other transports -------------------
     cgrid = c_grid_and_other_dynamics(dev, smi, reset_counters,
                                       read_counters)
+    # ---- the column physics of CICE's standard configuration -----------
+    cols = column_physics(dev, smi, reset_counters, read_counters)
     on_base = {k: {r: base[r]["launches"][k]
                    for r in ("gx1pop", "gx3pop", "tx1pop")}
+               for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+    on_cols = {k: {"mushy_dedd_step": cols["mushy_dedd"]["launches"][k],
+                   "mushy_dedd_day": cols["day"]["launches"][k],
+                   **{o: v["launches"][k] for o, v in cols["sets"].items()}}
                for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
 
     results = [
@@ -1064,7 +1317,12 @@ def main() -> int:
          "launches": launches["evp_fused"], "max_abs_err": k1_abs,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None,
-         "launches_baseline": on_base["evp_fused"]},
+         "launches_baseline": on_base["evp_fused"],
+         "columns": {"ms": cols["k1"]["ms"],
+                     "plain_ms": cols["k1"]["plain_ms"],
+                     "bound_ms": cols["k1"]["bound"][0],
+                     "max_abs_err": cols["k1"]["err"],
+                     "launches": on_cols["evp_fused"]}},
         {"name": "transport_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/transport_fused.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:653",
@@ -1080,7 +1338,12 @@ def main() -> int:
                    "launches_gridc": cgrid["gridc"]["launches"][
                        "transport_fused"],
                    "launches_dynpicard": cgrid["dynpicard"]["launches"][
-                       "transport_fused"]}},
+                       "transport_fused"]},
+         "columns": {"ms": cols["k2"]["ms"],
+                     "plain_ms": cols["k2"]["plain_ms"],
+                     "bound_ms": cols["k2"]["bound"][0],
+                     "max_abs_err": cols["k2"]["err"],
+                     "launches": on_cols["transport_fused"]}},
         {"name": "tracer_fluxes", "route": "cuda",
          "source": "cice_tpu_torch/csrc/tracer_fluxes.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:261",
@@ -1124,7 +1387,7 @@ def main() -> int:
                                  "dyn": dyn_launches},
                        freshwater_residual=wres, ridge_passes=rdg["npass"],
                        transport_checks=tc, restart_history=rh,
-                       baseline=base, cgrid=cgrid), f,
+                       baseline=base, cgrid=cgrid, columns=cols), f,
                   indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

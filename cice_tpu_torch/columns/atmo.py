@@ -62,9 +62,6 @@ def atmo_boundary_layer(Tsf, potT, uatm, vatm, wind, zlvl, Qa, rhoa,
     humidity; returns coefficients such that
       fsens = shcoef * (potT - TsfK),   flat = lhcoef * (Qa - qsfc).
     """
-    if Cdn_atm is not None:
-        raise NotImplementedError(
-            "form drag is not ported yet (ROADMAP A6)")
     TsfK = Tsf + cst.Tffresh
     if over == "ice":
         qsfc = saturated_specific_humidity_ice(TsfK, rhoa)
@@ -80,7 +77,15 @@ def atmo_boundary_layer(Tsf, potT, uatm, vatm, wind, zlvl, Qa, rhoa,
     delt = potT - TsfK
     delq = Qa - qsfc
 
-    rdn = rhn = ren = cst.vonkar / math.log(cst.zref / zrf)
+    # neutral coefficients; with form drag the momentum coefficient comes
+    # from the Tsamados decomposition (sqrt(Cdn) = u*/U at zref); heat and
+    # moisture stay skin-scale
+    rdn0 = cst.vonkar / math.log(cst.zref / zrf)
+    if Cdn_atm is not None and over == "ice":
+        rdn = torch.sqrt(torch.clamp(Cdn_atm, min=1e-6))
+    else:
+        rdn = rdn0
+    rhn = ren = rdn0
 
     ustar = rdn * vmag
     tstar = rhn * delt
@@ -135,7 +140,8 @@ def atmo_boundary_layer(Tsf, potT, uatm, vatm, wind, zlvl, Qa, rhoa,
     prof = torch.log(zlvl / zTrf) - psixh + psix2
     Tref = potT - delt * (rh / cst.vonkar) * prof - 0.01 * zTrf
     Qref = Qa - delq * (re / cst.vonkar) * prof
-    Uref = vmag * rd / max(rdn, 1e-8)
+    Uref = vmag * rd / (torch.clamp(rdn, min=1e-8)
+                        if isinstance(rdn, torch.Tensor) else max(rdn, 1e-8))
     return AtmoCoeffs(shcoef=shcoef, lhcoef=lhcoef, strx=strx, stry=stry,
                       Tref=Tref, Qref=Qref, Uref=Uref)
 

@@ -3,7 +3,7 @@ port of cice_tpu/columns/shortwave.py).
 
 The CCSM3 sea-ice albedo parameterization (Briegleb et al. 2004) with
 Beer's-law penetration: visible radiation penetrates bare ice with fraction
-i0vis and decays as exp(-kappav z). Delta-Eddington waits for ROADMAP A6.
+i0vis and decays as exp(-kappav z). Delta-Eddington is columns/dedd.py.
 All functions are dense over (ncat, ny, nx) tensors.
 """
 

@@ -1,5 +1,6 @@
-"""Vertical thermodynamics: BL99 multi-layer conduction + growth/melt
-(PyTorch port of cice_tpu/columns/thermo_vertical.py).
+"""Vertical thermodynamics: BL99 multi-layer conduction + growth/melt,
+with the mushy-layer (ktherm=2) state relations of columns/mushy.py in the
+same solve (PyTorch port of cice_tpu/columns/thermo_vertical.py).
 
 Bitz & Lipscomb (1999) brine-pocket heat capacity, implicit conduction solve
 and congelation/melt bookkeeping; Maykut & Untersteiner (1971) salinity
@@ -133,9 +134,9 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
     """
     from .atmo import surface_fluxes
 
-    if ktherm == 2:
-        raise NotImplementedError(
-            "mushy thermodynamics (ktherm=2) is not ported yet (ROADMAP A6)")
+    mushy = ktherm == 2
+    if mushy:
+        from . import mushy as mush
 
     # snow-present mask: hsn > hs_min. A puny threshold lets hs ~ 1e-10
     # through, whose 1/hslyr conductances overflow the f32 elimination
@@ -143,7 +144,12 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
     snow_f = snow.to(Tsf.dtype)
 
     Tsn0 = [temp_from_enthalpy_snow(q) for q in qsno]
-    Tin0 = [temp_from_enthalpy_ice(qice[k], Tm[k]) for k in range(nilyr)]
+    if mushy:
+        Tin0 = [mush.temperature_mush(qice[k], salin[k])
+                for k in range(nilyr)]
+    else:
+        Tin0 = [temp_from_enthalpy_ice(qice[k], Tm[k])
+                for k in range(nilyr)]
     Tsf = torch.clamp(Tsf, -100.0, 0.0)   # [Tmin, Tsmelt] physical window
 
     einit = sum(q * hslyr for q in qsno) + sum(q * hilyr for q in qice)
@@ -151,9 +157,15 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
     hslyr_p = torch.clamp(hslyr, min=cst.puny)
     n_lay = nslyr + nilyr
 
+    def conductivities(Tin):
+        if mushy:
+            return [mush.conductivity_mush(Tin[k], salin[k])
+                    for k in range(nilyr)]
+        return [conductivity_ice(salin[k], Tin[k], conduct)
+                for k in range(nilyr)]
+
     def body(Tsf, Tsn, Tin):
-        ki = [conductivity_ice(salin[k], Tin[k], conduct)
-              for k in range(nilyr)]
+        ki = conductivities(Tin)
         # interface conductances (W/m^2/K). Without snow the snow rows
         # become massless conducting nodes whose series conductance from
         # Tsf to the first ice midpoint equals 2*ki0/hilyr, so one dense
@@ -172,9 +184,13 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
         kh_bot = 2.0 * ki[-1] / hilyr
 
         etas = torch.where(snow, dt / (cst.rhos * cst.cp_ice * hslyr_p), 0.0)
-        ci = [cst.cp_ice - cst.Lfresh * Tm[k] /
-              torch.clamp(Tin[k] * Tin0[k], min=1e-8)
-              for k in range(nilyr)]
+        if mushy:
+            ci = [mush.eff_heat_capacity_mush(Tin[k], Tin0[k], salin[k])
+                  for k in range(nilyr)]
+        else:
+            ci = [cst.cp_ice - cst.Lfresh * Tm[k] /
+                  torch.clamp(Tin[k] * Tin0[k], min=1e-8)
+                  for k in range(nilyr)]
         etai = [dt / (cst.rhoi * torch.clamp(ci[k], min=cst.cp_ice * 0.01)
                       * hilyr) for k in range(nilyr)]
 
@@ -237,7 +253,7 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
             x_prev = alpha[k] + beta[k] * x_prev
             Tlay.append(x_prev)
         Tsn = [torch.clamp(Tlay[k], -100.0, 0.0) for k in range(nslyr)]
-        Tin = [torch.clamp(Tlay[nslyr + k], -100.0, Tm[k])
+        Tin = [clip(Tlay[nslyr + k], -100.0, Tm[k])
                for k in range(nilyr)]
         return Tsf, Tsn, Tin
 
@@ -254,7 +270,7 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
 
     fsurf, dfsurf, fsens, flat, flwout = surface_fluxes(
         Tsf, shcoef, lhcoef, potT, Qa, rhoa, flw, fswsfc)
-    ki = [conductivity_ice(salin[k], Tin[k], conduct) for k in range(nilyr)]
+    ki = conductivities(Tin)
     khs_sfc = 2.0 * cst.ksno / hslyr_p
     kh_sfc = torch.where(snow, khs_sfc, 2.0 * ki[0] / hilyr)
     Ttop = torch.where(snow, Tsn[0], Tin[0])
@@ -263,7 +279,11 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
 
     qsno_new = [torch.where(snow, enthalpy_snow(t), q)
                 for t, q in zip(Tsn, qsno)]
-    qice_new = [enthalpy_ice(Tin[k], Tm[k]) for k in range(nilyr)]
+    if mushy:
+        qice_new = [mush.enthalpy_mush(Tin[k], salin[k])
+                    for k in range(nilyr)]
+    else:
+        qice_new = [enthalpy_ice(Tin[k], Tm[k]) for k in range(nilyr)]
     efinal = sum(q * hslyr for q in qsno_new) + \
         sum(q * hilyr for q in qice_new)
 

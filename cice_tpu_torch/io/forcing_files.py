@@ -18,7 +18,8 @@ NumPy interpolation on the host), and the caller casts to the state dtype.
 So the host uploads one record per field when the bracket moves, not
 every step.
 
-Wave spectra (`WaveSpecDataset`) wait for ROADMAP A6.
+`WaveSpecDataset` reads a wave model's monthly 25-frequency spectra
+(wave_spec_type='file') and keeps the current month on the device.
 """
 
 from __future__ import annotations
@@ -333,3 +334,52 @@ def ispol_dataset(data_dir: str, shape) -> PointSeriesDataset:
         fields=dict(Tair="Tair", Qa="Qa", uatm="uatm", vatm="vatm",
                     fsw="fsw", flw="flw", fsnow="fsnow"),
         secint=6.0 * 3600.0, shape=shape)
+
+
+# ---------------------------------------------------------------------------
+# ocean-surface wave spectrum dataset (reference get_wave_spec,
+# ice_forcing.F90: wave_spec_type='file' reads `wave_spec_file`, a monthly
+# 25-frequency E(f) wave-model product for the FSD fracture)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class WaveSpecDataset:
+    """Monthly (12, nfreq, ny, nx), or static (nfreq, ny, nx), `efreq`
+    spectra [m^2/Hz] read as float32 (the file's precision, as in the JAX
+    package). `at_month` returns the month's planes as a float32 tensor
+    on `device`; the last month stays there, so a month is uploaded
+    once."""
+
+    path: str
+    shape: tuple
+    device: str = "cpu"
+    _data: Optional[np.ndarray] = None
+    _month: Optional[tuple] = None
+
+    def _load(self) -> np.ndarray:
+        if self._data is None:
+            if self.path.endswith(".npz"):
+                with np.load(self.path) as z:
+                    self._data = np.asarray(z["efreq"], np.float32)
+            else:
+                from scipy.io import netcdf_file
+                with netcdf_file(self.path, "r", mmap=False) as f:
+                    self._data = np.array(f.variables["efreq"][:],
+                                          np.float32)
+            if self._data.shape[-2:] != tuple(self.shape):
+                raise ValueError(
+                    f"wave_spec_file grid {self._data.shape[-2:]} != "
+                    f"model grid {tuple(self.shape)}")
+        return self._data
+
+    def at_month(self, month: int) -> torch.Tensor:
+        d = self._load()
+        slot = 0 if d.ndim == 3 else (month - 1) % d.shape[0]
+        if self._month is None or self._month[0] != slot:
+            plane = d if d.ndim == 3 else d[slot]
+            self._month = (slot, torch.as_tensor(plane, device=self.device))
+        return self._month[1]
+
+
+def wave_spec_dataset(path: str, shape, device="cpu") -> WaveSpecDataset:
+    return WaveSpecDataset(path=path, shape=tuple(shape), device=device)

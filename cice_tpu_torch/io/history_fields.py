@@ -8,10 +8,10 @@ grid[, forcing]) that returns its planes as tensors on the model's device.
 `build_fields(cfg)` gives the registry in the JAX package's order, so the
 names, units, dimensions and rows of the two packages' history files agree.
 
-The groups whose physics is not ported yet (snow, fsd, bgc, zbgc, hbrine,
-drag, aerosols and isotopes, and the mushy branches of the profile and
-CMIP temperatures) raise `NotImplementedError` naming ROADMAP A6 when the
-configuration enables them; they never write zeros in place of a field.
+The groups of the biogeochemistry, which is not ported yet (bgc, zbgc,
+hbrine, aerosols and isotopes), raise `NotImplementedError` naming ROADMAP
+A6 when the configuration enables them; they never write zeros in place of
+a field.
 """
 
 from __future__ import annotations
@@ -430,13 +430,15 @@ def profile_fields(cfg) -> List[HistoryField]:
     f_Tsnz, reference ice_history_shared.F90:101-123): per-category,
     per-layer ice temperature/salinity and snow temperature inverted
     from the enthalpy/salinity tracers, one variable each with
-    (nc, nkice)/(nc, nksnow) dims. BL99 only: `build_fields` refuses the
-    mushy thermodynamics."""
+    (nc, nkice)/(nc, nksnow) dims; under ktherm=2 the ice temperatures
+    invert the mushy enthalpy with the prognostic salinity."""
+    from ..columns.mushy import temperature_mush
     from ..columns.thermo_vertical import (bl99_salinity, melting_temps,
                                            temp_from_enthalpy_ice,
                                            temp_from_enthalpy_snow)
     nilyr = cfg.domain.nilyr
     nslyr = cfg.domain.nslyr
+    mushy = cfg.thermo.ktherm == 2
     di = (("nc", cfg.domain.ncat), ("nkice", nilyr))
     ds = (("nc", cfg.domain.ncat), ("nksnow", nslyr))
     salin = bl99_salinity(nilyr)
@@ -446,6 +448,8 @@ def profile_fields(cfg) -> List[HistoryField]:
 
     def tin(s, fl, g):
         q = s.trcrn["qice"]                       # (ncat, nilyr, ny, nx)
+        if mushy and "sice" in s.trcrn:
+            return _alive(s, temperature_mush(q, s.trcrn["sice"]))
         Tm = torch.as_tensor(melting_temps(salin), dtype=q.dtype,
                              device=q.device)
         return _alive(s, temp_from_enthalpy_ice(q, Tm[None, :, None, None]))
@@ -492,8 +496,8 @@ def cmip_si_fields(cfg) -> List[HistoryField]:
     FluxOut sources; per-step melt/growth accumulators convert to mass-flux
     rates with the model dt. Temperatures follow the CMIP kelvin
     convention. sisndmasssubl has no source (no snow/ice sublimation
-    split). BL99 only: `build_fields` refuses the mushy thermodynamics and
-    the form drag (sidragtop/sidragbot)."""
+    split). Under ktherm=2 the layer temperatures invert the mushy
+    enthalpy; with form drag sidragtop/sidragbot join."""
     from ..columns.thermo_vertical import (bl99_salinity, melting_temps,
                                            temp_from_enthalpy_ice)
     dt = float(cfg.setup.dt)
@@ -515,10 +519,17 @@ def cmip_si_fields(cfg) -> List[HistoryField]:
     def _snhc(s, fl, g):
         return (s.trcrn["qsno"].mean(1) * s.vsnon).sum(0)
 
+    mushy = cfg.thermo.ktherm == 2
+
     def _layer_temp(k):
         # temperature of ice layer k, category mean, in kelvin
         def fn(s, fl, g):
-            T = temp_from_enthalpy_ice(s.trcrn["qice"][:, k], float(Tm[k]))
+            q = s.trcrn["qice"][:, k]
+            if mushy and "sice" in s.trcrn:
+                from ..columns.mushy import temperature_mush
+                T = temperature_mush(q, s.trcrn["sice"][:, k])
+            else:
+                T = temp_from_enthalpy_ice(q, float(Tm[k]))
             return _agg(T, s.aicen, s.aice) + cst.Tffresh
         return fn
 
@@ -666,6 +677,14 @@ def cmip_si_fields(cfg) -> List[HistoryField]:
         _f("siitdsnthick", "m", "snow depth in categories",
            lambda s, fl, g: s.vsnon / _mx(s.aicen, cst.puny), dims=c),
     ]
+    if cfg.forcing.formdrag:
+        from ..columns.formdrag import drag_from_state
+        F += [
+            _f("sidragtop", "1", "atm drag coefficient over ice",
+               lambda s, fl, g: drag_from_state(s, cfg).Cdn_atm),
+            _f("sidragbot", "1", "ocean drag coefficient under ice",
+               lambda s, fl, g: drag_from_state(s, cfg).Cdn_ocn),
+        ]
     return F
 
 
@@ -1055,16 +1074,190 @@ def parity_extra_fields(cfg) -> List[HistoryField]:
     return F
 
 
+def snow_fields() -> List[HistoryField]:
+    """Snow-physics group (ice_history_snow.F90: rsnw/smassice/smassliq)."""
+    return [
+        _f("rsnw", "10^-6 m", "mean snow grain radius",
+           lambda s, fl, g: _agg(s.trcrn["rsnw"].mean(1), s.aicen, s.aice)),
+        _f("smassice", "kg/m^2", "ice mass content of snow",
+           lambda s, fl, g: (s.trcrn["smice"].sum(1) * s.aicen).sum(0)),
+        _f("smassliq", "kg/m^2", "liquid water content of snow",
+           lambda s, fl, g: (s.trcrn["smliq"].sum(1) * s.aicen).sum(0)),
+    ]
+
+
+def snow_extra_fields(cfg) -> List[HistoryField]:
+    """Per-category snow tracer planes (reference f_rsnwn/f_smassicen/
+    f_smassliqn/f_rhos_cmpn in ice_history_snow.F90) and the wind-blown
+    snow loss."""
+    c = (("nc", cfg.domain.ncat),)
+
+    def rhos_mean(s, fl, g):
+        return _agg(s.trcrn["rhos_cmp"].mean(1), s.aicen, s.aice)
+    return [
+        _f("rsnwn", "10^-6 m", "snow grain radius, categories",
+           lambda s, fl, g: s.trcrn["rsnw"].mean(1), dims=c),
+        _f("smassicen", "kg/m^2", "snow ice mass content, categories",
+           lambda s, fl, g: s.trcrn["smice"].sum(1), dims=c),
+        _f("smassliqn", "kg/m^2", "snow liquid content, categories",
+           lambda s, fl, g: s.trcrn["smliq"].sum(1), dims=c),
+        _f("rhos_cmpn", "kg/m^3", "compacted snow density, categories",
+           lambda s, fl, g: s.trcrn["rhos_cmp"].mean(1), dims=c),
+        _f("rhos_cntn", "kg/m^3", "snow density incl. grain metamorphosis,"
+           " categories",
+           lambda s, fl, g: s.trcrn["rhos_cmp"].mean(1), dims=c),
+        _f("rhos_cmp", "kg/m^3", "compacted snow density (cell mean)",
+           rhos_mean),
+        _f("rhos_cnt", "kg/m^3", "snow density incl. grain metamorphosis "
+           "(cell mean)", rhos_mean),
+        _f("snowfracn", "1", "snow-covered fraction, categories",
+           lambda s, fl, g: _flag(s.vsnon > cst.puny, s.aicen) * s.aicen,
+           dims=c),
+        _f("fsloss", "kg/m^2/s", "snow mass loss to leads (wind)",
+           _nf2d("fsloss")),
+        _f("sisndmasswind", "kg/m^2/s",
+           "snow mass loss by wind drift into leads (CMIP)",
+           _nf2d("fsloss")),
+    ]
+
+
+def fsd_fields(cfg) -> List[HistoryField]:
+    """FSD group (ice_history_fsd.F90: fsdrad representative radius)."""
+    from ..columns.fsd import fsd_bounds
+    _, _, mid = fsd_bounds(cfg.domain.nfsd)
+
+    def fsdrad(s, fl, g):
+        f = s.trcrn["fsd"]
+        r = torch.as_tensor(mid, dtype=f.dtype, device=f.device)
+        return _agg(torch.sum(f * r[None, :, None, None], dim=1),
+                    s.aicen, s.aice)
+    return [_f("fsdrad", "m", "number-mean floe radius", fsdrad)]
+
+
+def fsd_extra_fields(cfg) -> List[HistoryField]:
+    """FSD distribution planes, perimeter, the fields passed to a wave
+    model and the per-process tendencies (reference f_afsd, f_afsdn,
+    f_fsdperim, f_wave_sig_ht, aice_ww/diam_ww/hice_ww and
+    f_dafsd_newi/latg/latm/wave/weld in ice_history_fsd.F90)."""
+    from ..columns.fsd import fsd_bounds
+    _, _, mid = fsd_bounds(cfg.domain.nfsd)
+    nfsd, ncat = cfg.domain.nfsd, cfg.domain.ncat
+    nf = (("nkfsd", nfsd),)
+
+    def vec(vals, like):
+        return torch.as_tensor(vals, dtype=like.dtype, device=like.device)
+
+    def fsdperim(s, fl, g):
+        # circular floes of radius r contribute 2/r per unit floe area
+        f = s.trcrn["fsd"]
+        inv_r = vec([2.0 / m for m in mid], f)
+        return (torch.sum(f * inv_r[None, :, None, None], dim=1)
+                * s.aicen).sum(0)
+
+    floeshape = 0.66
+
+    def _ww(which):
+        def fn(s, fl, g):
+            fsd = s.trcrn["fsd"]                       # (ncat, nf, ny, nx)
+            afsd = torch.sum(fsd * s.aicen[:, None], dim=0)
+            a_ww = torch.sum(afsd, dim=0)
+            if which == "aice":
+                return a_ww
+            if which == "hice":
+                vfsd = torch.sum(fsd * s.vicen[:, None], dim=0)
+                h = torch.sum(vfsd, dim=0) / _mx(a_ww, cst.puny)
+                return torch.where(a_ww > cst.puny, h, 1.0)
+            # number-mean diameter: weight by floe count afsd/(4 shape r^2)
+            rad = vec(mid, fsd)
+            cnt = afsd / (4.0 * floeshape * rad[:, None, None] ** 2)
+            num = torch.sum(cnt * rad[:, None, None], dim=0)
+            den = torch.sum(cnt, dim=0)
+            diam = 2.0 * num / _mx(den, cst.puny)
+            return torch.clamp(torch.where(den > 0.0, diam, 0.0),
+                               min=2.0 * float(mid[0]))
+        return fn
+
+    def _tend(key):
+        def fn(s, fl, g):
+            planes = fl.ncat_fluxes.get(key)
+            if planes is None:
+                return torch.zeros((nfsd,) + tuple(s.aice.shape),
+                                   dtype=s.aice.dtype, device=s.aice.device)
+            return planes
+        return fn
+
+    F = [
+        _f("afsd", "1/m", "areal floe size distribution",
+           lambda s, fl, g: torch.sum(s.trcrn["fsd"] * s.aicen[:, None],
+                                      dim=0), dims=nf),
+        _f("afsdn", "1/m", "areal floe size distribution, categories",
+           lambda s, fl, g: torch.swapaxes(
+               s.trcrn["fsd"] * s.aicen[:, None], 0, 1),
+           dims=nf + (("nc", ncat),)),
+        _f("fsdperim", "1/m", "floe perimeter per unit area", fsdperim),
+        _ff("wave_sig_ht", "m", "significant wave height",
+            lambda s, fl, g, fc: fc.wave_hs),
+        _f("aice_ww", "1", "ice area in waves advection domain",
+           _ww("aice")),
+        _f("diam_ww", "m", "number-mean floe diameter seen by waves",
+           _ww("diam")),
+        _f("hice_ww", "m", "FSD-weighted ice thickness seen by waves",
+           _ww("hice")),
+    ]
+    for key in ("dafsd_newi", "dafsd_latg", "dafsd_latm", "dafsd_wave",
+                "dafsd_weld"):
+        F.append(_f(key, "1/s", f"FSD tendency, {key[6:]}", _tend(key),
+                    dims=nf))
+    return F
+
+
+def drag_fields(cfg) -> List[HistoryField]:
+    """Form-drag decomposition (ice_history_drag.F90: f_Cdn_atm/f_Cdn_ocn,
+    the per-obstacle components and the ridge geometry)."""
+    from ..columns.formdrag import drag_from_state
+
+    def df(attr):
+        def fn(s, fl, g):
+            return getattr(drag_from_state(s, cfg), attr)
+        return fn
+
+    names = [
+        ("Cdn_atm", "1", "neutral atm drag coefficient"),
+        ("Cdn_ocn", "1", "neutral ocean drag coefficient"),
+        ("Cdn_atm_skin", "1", "atm drag, skin"),
+        ("Cdn_atm_rdg", "1", "atm drag, ridge sails"),
+        ("Cdn_atm_floe", "1", "atm drag, floe edges"),
+        ("Cdn_atm_pond", "1", "atm drag, pond edges"),
+        ("Cdn_ocn_skin", "1", "ocn drag, skin"),
+        ("Cdn_ocn_keel", "1", "ocn drag, ridge keels"),
+        ("Cdn_ocn_floe", "1", "ocn drag, floe edges"),
+        ("hfreebd", "m", "freeboard"),
+        ("hdraft", "m", "draft"),
+        ("hridge", "m", "sail height"),
+        ("distrdg", "m", "ridge spacing"),
+        ("hkeel", "m", "keel depth"),
+        ("dkeel", "m", "keel spacing"),
+        ("lfloe", "m", "floe length"),
+        ("dfloe", "m", "floe spacing"),
+    ]
+    out = [_f(n, u, ln, df(n)) for n, u, ln in names]
+
+    def ratio(s, fl, g):
+        d = drag_from_state(s, cfg)
+        return d.Cdn_atm / _mx(d.Cdn_atm_skin, 1e-12)
+    out.append(_f("Cdn_atm_ratio", "1",
+                  "ratio total atm drag / neutral skin drag", ratio))
+    return out
+
+
 def build_fields(cfg) -> List[HistoryField]:
     """Full conditional registry (init_hist honoring the tracer flags —
     reference icefields_*_nml groups), in the JAX package's order."""
     t, d = cfg.tracers, cfg.domain
     waiting = [name for name, on in (
-        ("snow", t.tr_snow), ("fsd", t.tr_fsd),
         ("bgc", cfg.zbgc.skl_bgc), ("zbgc", cfg.zbgc.z_tracers),
-        ("hbrine", t.tr_brine), ("drag", cfg.forcing.formdrag),
-        ("aero_iso", (t.tr_aero and d.n_aero) or (t.tr_iso and d.n_iso)),
-        ("mushy profile and CMIP temperatures", cfg.thermo.ktherm == 2))
+        ("hbrine", t.tr_brine),
+        ("aero_iso", (t.tr_aero and d.n_aero) or (t.tr_iso and d.n_iso)))
         if on]
     if waiting:
         raise NotImplementedError(
@@ -1076,10 +1269,16 @@ def build_fields(cfg) -> List[HistoryField]:
         + ai_flux_fields() + profile_fields(cfg) + tensor_fields(cfg) \
         + precip_extra_fields() + flux_diag_fields(cfg) \
         + parity_extra_fields(cfg)
+    if cfg.forcing.formdrag:
+        fields += drag_fields(cfg)
     if t.tr_iage and t.tr_FY:
         fields += age_fields()
     if t.tr_pond_lvl or t.tr_pond_topo or t.tr_pond_sealvl:
         fields += pond_fields() + pond_extra_fields(cfg)
+    if t.tr_snow:
+        fields += snow_fields() + snow_extra_fields(cfg)
+    if t.tr_fsd:
+        fields += fsd_fields(cfg) + fsd_extra_fields(cfg)
     if t.tr_lvl:
         fields += mechred_fields() + mechred_extra_fields(cfg)
     if cfg.setup.hist_cmip:

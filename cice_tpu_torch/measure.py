@@ -1,7 +1,9 @@
 """What the port's measurement scripts and tests share (chip_smoke.py,
 tune_kernels.py, tests/test_torch_kernels_cuda.py): the CUDA-event timer,
 the card's name and power limit, the EVP inputs K1 is held against its
-plain version on, and the dense transport case K2 and K3 are timed on.
+plain version on (synthetic, or a model state's), the transport inputs of
+a model state, the dense transport case K2 and K3 are timed on, and
+counts of the PyTorch operations and host reads a call makes.
 """
 
 from __future__ import annotations
@@ -106,3 +108,75 @@ def flux_case(grid, mom_n, mom_e, am, trm, table):
     mc, mx, my, tc, tx, ty, tstack = rx.construct_fields(grid, am, trm,
                                                          table, grid.hm)
     return (grid, mom_n, mom_e, mc, mx, my, tc, tx, ty, table), tstack
+
+
+def evp_state_problem(ms, grid, state, fc, strairx, strairy, dt):
+    """(args, kwargs) of the B-grid EVP solve that `step_dyn_horiz` makes
+    of a model state, for holding K1 against `evp_solve` on that state."""
+    from .model.step import b_grid_prep
+    d = ms.cfg.dynamics
+    prep, uocn, vocn = b_grid_prep(ms.cfg, grid, state, fc, strairx,
+                                   strairy, dt)
+    strength = ice_strength(state.aicen, state.vicen, state.aice,
+                            state.vice, d)
+    return (grid, evp_params(d, dt), prep, strength, state.stressp,
+            state.stressm, state.stress12), dict(uocn=uocn, vocn=vocn)
+
+
+def transport_state_problem(ms, grid, state, dt):
+    """(grid, mom_n, mom_e, am, trm, table) of the exact-remap pass that
+    `horizontal_remap_exact` makes of a B-grid state: the edge moments of
+    its departure points and its tracer stack. Returns it and the largest
+    departure (cells)."""
+    from .dynamics import remap_exact as rx
+    dxs, dys, _ = rx.departure_points_scaled(
+        grid, state.uvel, state.vvel, dt, ms.cfg.dynamics.l_dp_midpt)
+    mom_n, mom_e = (t.contiguous() for t in rx.edge_moments(grid, dxs,
+                                                             dys))
+    table = rx.build_flat_table(ms.registry)
+    am, trm = rx.state_to_tracers(state, ms.registry, table)
+    moving = float(torch.sqrt(dxs ** 2 + dys ** 2).max())
+    return (grid, mom_n, mom_e, am, trm, table), moving
+
+
+def count_ops(fn) -> int:
+    """The PyTorch operations `fn()` dispatches (aten calls, views
+    included): an upper count of the kernel launches a call of eager code
+    makes besides the hand-written kernels' own."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def count_host_reads(fn) -> int:
+    """The tensor-to-Python conversions (`bool`, `float`, `int`, `.item()`)
+    `fn()` makes: on the card each one waits for the device. The global
+    exit tests of the coupled step make one per Picard pass, per ridging
+    pass and per `rebin` category move."""
+    names = ("__bool__", "__float__", "__int__", "item")
+    saved = {nm: getattr(torch.Tensor, nm) for nm in names}
+    count = [0]
+
+    def counting(f):
+        def call(self, *a, **k):
+            count[0] += 1
+            return f(self, *a, **k)
+        return call
+
+    try:
+        for nm, f in saved.items():
+            setattr(torch.Tensor, nm, counting(f))
+        fn()
+    finally:
+        for nm, f in saved.items():
+            setattr(torch.Tensor, nm, f)
+    return count[0]

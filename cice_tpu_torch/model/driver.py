@@ -24,6 +24,7 @@ import torch
 from .. import constants as cst
 from ..calendar import Calendar, npt_to_steps
 from ..columns import itd as itd_mod
+from ..columns.mushy import enthalpy_mush
 from ..columns.thermo_vertical import (bl99_salinity, enthalpy_ice,
                                        enthalpy_snow, melting_temps)
 from ..core.grid import Grid, make_grid
@@ -72,16 +73,16 @@ def set_state_var(cfg, grid: Grid, state: State, Tf) -> State:
     vicen = torch.stack(vicen)
     vsnon = torch.stack(vsnon)
 
-    if cfg.thermo.ktherm == 2:
-        raise NotImplementedError(
-            "mushy (ktherm=2) initial enthalpy is not ported yet (ROADMAP "
-            "A6: column options)")
     qice = []
     for k in range(nilyr):
         zf = (k + 0.5) / nilyr
         Tlay = Tsfc0 * (1.0 - zf) + Tf * zf
         Tlay = torch.clamp(Tlay, max=float(Tmlt[k]) - 0.1)
-        qice.append(enthalpy_ice(Tlay, float(Tmlt[k])))
+        if cfg.thermo.ktherm == 2:
+            qice.append(enthalpy_mush(Tlay, torch.full_like(
+                Tlay, float(salin[k]))))
+        else:
+            qice.append(enthalpy_ice(Tlay, float(Tmlt[k])))
     qice = torch.stack(qice)                     # (nilyr, ny, nx)
     qsno = enthalpy_snow(torch.clamp(Tsfc0, max=-1.0))
 

@@ -13,12 +13,17 @@ geographic vectors into grid components through ANGLET.
 
 The datasets belong to the caller (`Model.datasets`): the JAX package
 keeps them in a module dictionary keyed by `id(cfg)`, which hands a later
-Config that reuses a freed id the first one's dataset. Wave spectra wait
-for ROADMAP A6.
+Config that reuses a freed id the first one's dataset; the wave-spectrum
+file dataset is kept the same way, under the stream 'wave'.
+
+Wave spectra (reference get_wave_spec): the 25-bin WW3 frequency grid, a
+Bretschneider spectrum of the local wind sea, or a wave model's monthly
+spectra from `wave_spec_file`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -329,8 +334,80 @@ def get_forcing(cfg, grid, timesecs: float, yday: float, aice,
     elif ocn in ("clim", "ncar", "hycom") and f.ocn_data_dir:
         ds = dataset("hycom" if ocn == "hycom" else "ocn")
         fc = file_ocn(grid, cfg, ds.at_time(year, sec_of_year), fc)
-    if f.wave_spec_type != "none":
-        raise NotImplementedError(
-            "wave spectra are not ported yet (ROADMAP A6: column options)")
+    wst = f.wave_spec_type
+    if wst == "file" and f.wave_spec_file:
+        # a wave model's spectrum E(f), read per month; Hs and Tp from its
+        # spectral moments
+        if "wave" not in datasets:
+            from ..io.forcing_files import wave_spec_dataset
+            datasets["wave"] = wave_spec_dataset(f.wave_spec_file,
+                                                 grid.shape, grid.device)
+        month = int(yday // 30.4) % 12 + 1
+        dt_ = fc.wind.dtype
+        E = datasets["wave"].at_month(month).to(dt_)
+        fr, df = wave_frequencies(dt_, E.device)
+        m0 = torch.sum(E * df[:, None, None], dim=0)
+        m1 = torch.sum(E * (fr * df)[:, None, None], dim=0)
+        hs = 4.0 * torch.sqrt(m0)
+        Tp = torch.where(m1 > 0.0, m0 / torch.clamp(m1, min=1e-12), 8.0)
+        fc = fc.replace(wave_spectrum=E, wave_hs=hs, wave_Tp=Tp)
+    elif wst != "none":
+        fc = wave_spectrum_forcing(cfg, grid, aice, fc)
     return fc.replace(yday=torch.tensor(yday, dtype=fc.wind.dtype,
                                         device=fc.wind.device))
+
+
+# ---------------------------------------------------------------------------
+# ocean surface wave spectrum (reference get_wave_spec, ice_forcing.F90:
+# the 25-frequency E(f) that icepack_step_wavefracture reads)
+# ---------------------------------------------------------------------------
+
+NFREQ = 25
+
+
+def wave_frequencies(dtype=torch.float32, device="cpu"):
+    """The 25-bin WW3 frequency grid of the reference's wave files:
+    f_k = 0.04118 * 1.1^k Hz with logarithmic bin widths.
+
+    The powers are those of the JAX package in each dtype, whatever the
+    device: in float32 the float32 power (a float64 power rounded to
+    float32 differs in the last bit, and the FSD's fracture marks follow
+    it), taken on the CPU; in float64 the correctly rounded libm power
+    (math.pow), which XLA's equals and torch.pow's does not at k=10."""
+    return _wave_frequencies(dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _wave_frequencies(dtype, device):
+    if dtype == torch.float64:
+        p = torch.tensor([math.pow(1.1, k) for k in range(NFREQ)],
+                         dtype=dtype)
+    else:
+        p = torch.pow(1.1, torch.arange(NFREQ, dtype=dtype))
+    f = 0.04118 * p.to(device)
+    df = f * (1.1 ** 0.5 - 1.1 ** -0.5)
+    return f, df
+
+
+def bretschneider_spectrum(hs, Tp):
+    """Bretschneider (modified Pierson-Moskowitz) spectrum
+    E(f) = (5/16) Hs^2 fp^4 f^-5 exp(-5/4 (fp/f)^4) [m^2/Hz] on the 25-bin
+    grid; it integrates back to Hs = 4 sqrt(m0)."""
+    f, _ = wave_frequencies(hs.dtype, hs.device)
+    fp = 1.0 / torch.clamp(Tp, min=1.0)
+    fr = fp[None] / f[:, None, None]          # fp/f
+    return (5.0 / 16.0) * (hs[None] ** 2) * fr ** 4 / f[:, None, None] * \
+        torch.exp(-1.25 * fr ** 4)
+
+
+def wave_spectrum_forcing(cfg, grid, aice, fc: Forcing) -> Forcing:
+    """In-ice wave state: a fully developed local-wind sea (Hs = 0.0248
+    U^2, Tp = 0.729 U; Pierson & Moskowitz 1964) over the open-water
+    fraction, expanded to the 25-frequency spectrum."""
+    hs = 0.0248 * fc.wind ** 2 * torch.clamp(1.0 - aice, 0.0, 1.0)
+    Tp = torch.clamp(0.729 * fc.wind, min=2.0)
+    E = bretschneider_spectrum(hs, Tp)
+    _, df = wave_frequencies(E.dtype, E.device)
+    m0 = torch.sum(E * df[:, None, None], dim=0)
+    return fc.replace(wave_hs=4.0 * torch.sqrt(m0), wave_Tp=Tp,
+                      wave_spectrum=E)

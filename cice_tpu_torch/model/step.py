@@ -19,14 +19,22 @@ import torch
 
 from .. import constants as cst
 from ..columns import itd as itd_mod
+from ..columns import mushy as mush
 from ..columns.atmo import atmo_boundary_const, atmo_boundary_layer
 from ..columns.ocean import ocean_mixed_layer
-from ..columns.ponds import POND_DIAGS, pond_reservoir_mass, step_ponds
+from ..columns.dedd import shortwave_dEdd
+from ..columns.formdrag import drag_from_state
+from ..columns.fsd import step_dyn_wave, step_fsd_thermo
+from ..columns.ponds import (POND_DIAGS, pond_exposure, pond_reservoir_mass,
+                             step_ponds)
 from ..columns.ridging import ice_strength, ridge_ice
 from ..columns.shortwave import shortwave_ccsm3
+from ..columns.snow import step_snow
 from ..columns.thermo_itd import step_therm2
 from ..columns.thermo_vertical import (adjust_enthalpy, bl99_salinity,
-                                       melting_temps, temperature_changes,
+                                       melting_temps, safe_mix,
+                                       temp_from_enthalpy_snow,
+                                       temperature_changes,
                                        thickness_changes)
 from ..core.grid import Grid, grid_average_X2Y
 from ..dynamics import evp_c
@@ -89,21 +97,16 @@ def check_ported(cfg) -> None:
         raise ValueError(f"dynamics.advection={d.advection!r}: expected one "
                          f"of {ADVECTIONS}")
     A6 = "ROADMAP A6: column options"
+    dedd = cfg.shortwave.shortwave.startswith("dEdd")
     checks = (
-        (cfg.shortwave.shortwave.startswith("dEdd"),
-         "delta-Eddington shortwave (shortwave='dEdd*')", A6),
-        (cfg.thermo.ktherm == 2, "mushy thermodynamics (ktherm=2)", A6),
-        (t.tr_fsd, "the floe size distribution (tr_fsd)", A6),
-        (t.tr_snow, "advanced snow physics (tr_snow)", A6),
-        (cfg.forcing.formdrag, "form drag (formdrag)", A6),
         (cfg.forcing.highfreq, "high-frequency coupling (highfreq)", A6),
         (t.tr_aero, "aerosols (tr_aero)", A6),
         (t.tr_iso, "isotopes (tr_iso)", A6),
         (t.tr_brine, "the brine height tracer (tr_brine)", A6),
-        (t.tr_pond_topo or t.tr_pond_sealvl,
-         "topographic and sea-level ponds", A6),
         (cfg.zbgc.skl_bgc or cfg.zbgc.z_tracers,
          "skeletal-layer and vertical biogeochemistry", A6),
+        (dedd and cfg.zbgc.dEdd_algae,
+         "ice-algal shading in delta-Eddington (zbgc.dEdd_algae)", A6),
         (d.evp_algorithm == "wide_halo", "evp_algorithm='wide_halo'",
          "ROADMAP A8: multi-GPU evp_wide over torch.distributed"),
     )
@@ -141,6 +144,7 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     nilyr = cfg.domain.nilyr
     nslyr = cfg.domain.nslyr
 
+    mushy = cfg.thermo.ktherm == 2
     salin = bl99_salinity(nilyr)
     Tmlt = melting_temps(salin)
 
@@ -173,25 +177,51 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     qsno = [torch.where(mask, qsno_all[:, k], -cst.rhos * cst.Lfresh)
             for k in range(nslyr)]
 
-    sw = shortwave_ccsm3(Tsf, hin, hsn, fc.swvdr, fc.swvdf, fc.swidr,
-                         fc.swidf, cfg.shortwave, nilyr)
+    # shortwave partition (all categories at once); 'dEdd_snicar_ad' takes
+    # the delta-Eddington path too
+    if cfg.shortwave.shortwave.startswith("dEdd"):
+        apeff_rad = pond_exposure(cfg, aicen=an, vsnon=vsn, trcrn=trcrn)
+        hpnd_rad = trcrn.get("hpnd", torch.zeros_like(an))
+        sw = shortwave_dEdd(Tsf, hin, hsn, hpnd_rad, apeff_rad,
+                            fc.swvdr, fc.swvdf, fc.swidr, fc.swidf,
+                            fc.coszen, cfg.shortwave, nilyr, nslyr)
+    else:
+        sw = shortwave_ccsm3(Tsf, hin, hsn, fc.swvdr, fc.swvdf, fc.swidr,
+                             fc.swidf, cfg.shortwave, nilyr)
 
     # turbulent transfer coefficients
     if cfg.forcing.atmbndy == "constant":
         co = atmo_boundary_const(Tsf, fc.uatm, fc.vatm, fc.wind, fc.rhoa,
                                  fc.Qa)
     else:
+        Cdn = None
+        if cfg.forcing.formdrag:
+            Cdn = drag_from_state(state, cfg).Cdn_atm
         co = atmo_boundary_layer(Tsf, fc.potT, fc.uatm, fc.vatm, fc.wind,
                                  fc.zlvl, fc.Qa, fc.rhoa,
-                                 natmiter=cfg.forcing.natmiter,
+                                 natmiter=cfg.forcing.natmiter, Cdn_atm=Cdn,
                                  atmiter_conv=cfg.forcing.atmiter_conv)
 
     hin_solve = torch.clamp(hin, min=cfg.thermo.hi_min)
     hilyr = hin_solve / nilyr
     hslyr = hsn / nslyr
     Isw = [sw.Iswabs[:, k] for k in range(nilyr)]
-    salin_arg = [float(x) for x in salin]
-    Tm_arg = [float(x) for x in Tmlt]
+    if mushy:
+        sice_all = trcrn["sice"]              # (ncat, nilyr, ny, nx)
+        S_lay = [torch.where(mask, sice_all[:, k], float(salin[k]))
+                 for k in range(nilyr)]
+        salin_arg = S_lay
+        Tm_arg = [mush.liquidus_temperature(S) for S in S_lay]
+        # congel_freeze='one-step' freezes congelation ice solid at once
+        # (phi_init -> 1); 'two-step' forms mush at phi_i_mushy
+        phi_new = (1.0 if cfg.thermo.congel_freeze == "one-step"
+                   else cfg.thermo.phi_i_mushy)
+        qbot_new, S_bot_new = mush.new_ice_enthalpy_salinity(
+            Tbot, fc.sss, phi_new)
+    else:
+        salin_arg = [float(x) for x in salin]
+        Tm_arg = [float(x) for x in Tmlt]
+        qbot_new = None
 
     ts, qsno_new, qice_new = temperature_changes(
         dt, nilyr, nslyr, Tsf=Tsf, qsno=qsno, qice=qice,
@@ -208,7 +238,9 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         Tm=Tm_arg, salin=salin_arg,
         Tbot=Tbot, fbot=fbot, fsurf=ts.fsurf, fcondtop=ts.fcondtop,
         fcondbot=ts.fcondbot, flat=ts.flat, sss=fc.sss,
-        saltflux_option="constant",
+        qbot_new=qbot_new,
+        saltflux_option=(cfg.thermo.saltflux_option if mushy
+                         else "constant"),
         ice_ref_salinity=cfg.thermo.ice_ref_salinity)
 
     # snowfall accumulation
@@ -231,6 +263,22 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     qsno_r = adjust_enthalpy(dzs0, qs_list, nslyr, hsn_new)
 
     fsalt_drain = torch.zeros_like(aice)
+    if mushy:
+        # bottom congelation carries the new-ice salinity into the bottom
+        # layer, then the remap and two-mode gravity drainage
+        S_mix = list(S_lay)
+        S_mix[-1] = safe_mix(S_mix[-1], hilyr, S_bot_new, th.congel)
+        sice_r = adjust_enthalpy(dzi, S_mix, nilyr, th.hin)
+        T_r = [mush.temperature_mush(qice_r[k], sice_r[k])
+               for k in range(nilyr)]
+        sice_r, fsalt_d = mush.drain_salinity(
+            cfg.thermo, dt, S_layers=sice_r, T_layers=T_r,
+            hilyr=th.hin / nilyr, sss=fc.sss, nilyr=nilyr)
+        trcrn["sice"] = torch.stack(
+            [torch.where(mask, x, sice_all[:, k])
+             for k, x in enumerate(sice_r)], dim=1)
+        # drained brine salt reaches the ocean (category-area weighted)
+        fsalt_drain = torch.sum(torch.where(mask, an, 0.0) * fsalt_d, dim=0)
 
     hin_f = torch.where(mask, th.hin, 0.0)
     hsn_f = torch.where(mask, hsn_new, 0.0)
@@ -257,6 +305,16 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         pond_flush = torch.zeros_like(an)
         pond_diag = {k: torch.zeros_like(an) for k in POND_DIAGS}
 
+    # advanced snow physics (icepack_step_snow; it rides with therm1, where
+    # the per-category melt and snow temperature are in hand)
+    fsloss_n = None
+    meltsliq = None
+    if cfg.tracers.tr_snow:
+        trcrn, meltsliq, vsnon_out, fsloss_n = step_snow(
+            cfg, dt, vsnon=vsnon_out, aicen=an, trcrn=trcrn,
+            Tsno=temp_from_enthalpy_snow(trcrn["qsno"][:, 0]),
+            melts=th.melts, frain=fc.frain, fsnow=fc.fsnow, wind=fc.wind)
+
     # aggregate cell-mean fluxes (weight: category area; sum over categories)
     w = torch.where(mask, an, 0.0)
     ws = lambda x: torch.sum(w * x, dim=0)
@@ -278,7 +336,7 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         alidf=ws(sw.alidf), fsurf=ws(ts.fsurf), fcondtop=ws(ts.fcondtop),
         apond=ws(apeff), fpond=ws(pond_flush) * cst.rhofresh / dt,
         fcondbot=ws(ts.fcondbot), fswint=ws(sw.fswint),
-        meltsliq=zero2,
+        meltsliq=zero2 if meltsliq is None else ws(meltsliq),
     )
     # snow-covered fraction + broadband albedo partition by surface type
     asnow = hsn_f / (hsn_f + cst.snowpatch)
@@ -319,7 +377,8 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     agg["ncat_fluxes"]["scale_factor"] = torch.where(
         agg["fswabs"] > cst.puny,
         nsw / torch.clamp(agg["fswabs"], min=cst.puny), 1.0)
-    agg["ncat_fluxes"]["fsloss"] = zero2
+    agg["ncat_fluxes"]["fsloss"] = (zero2 if fsloss_n is None
+                                    else torch.sum(fsloss_n, dim=0))
     for k, v in pond_diag.items():
         agg[k] = ws(v)
     # 2m/10m reference diagnostics: ice-area-weighted over categories with
@@ -432,6 +491,26 @@ def _step_dyn_c(cfg, grid: Grid, state: State, fc: Forcing, strairx_T,
     return state, diags
 
 
+def b_grid_prep(cfg, grid: Grid, state: State, fc: Forcing, strairx_T,
+                strairy_T, dt: float):
+    """(prep, uocnU, vocnU): what the B-grid solvers of step_dyn_horiz take
+    besides the strength and the stresses. With form drag the ocean drag
+    coefficient at U points comes from the state (floored at 1e-4)."""
+    CwU = None
+    if cfg.forcing.formdrag:
+        dragc = drag_from_state(state, cfg)
+        CwU = torch.clamp(grid_average_X2Y("S", dragc.Cdn_ocn, "T", "U",
+                                           grid), min=1e-4)
+    prep = dyn_prep(grid, cfg.dynamics, dt, aice=state.aice,
+                    vice=state.vice, vsno=state.vsno,
+                    aiceU_prev_mask=state.iceUmask, uvel=state.uvel,
+                    vvel=state.vvel, strairxT=strairx_T,
+                    strairyT=strairy_T, uocn_T=fc.uocn, vocn_T=fc.vocn,
+                    ss_tltx_T=fc.ss_tltx, ss_tlty_T=fc.ss_tlty, Cw_in=CwU)
+    return (prep, grid_average_X2Y("S", fc.uocn, "T", "U", grid),
+            grid_average_X2Y("S", fc.vocn, "T", "U", grid))
+
+
 def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                    strairx_T, strairy_T, dt: float):
     """Horizontal dynamics (reference step_dyn_horiz:969), in the JAX
@@ -456,17 +535,8 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         check_ported(cfg)    # EAP and VP are B-grid solvers
         return _step_dyn_c(cfg, grid, state, fc, strairx_T, strairy_T, dt,
                            p, strength)
-    if cfg.forcing.formdrag:
-        raise NotImplementedError(
-            "form drag is not ported yet (ROADMAP A6: column options)")
-    prep = dyn_prep(grid, d, dt, aice=state.aice, vice=state.vice,
-                    vsno=state.vsno, aiceU_prev_mask=state.iceUmask,
-                    uvel=state.uvel, vvel=state.vvel,
-                    strairxT=strairx_T, strairyT=strairy_T,
-                    uocn_T=fc.uocn, vocn_T=fc.vocn,
-                    ss_tltx_T=fc.ss_tltx, ss_tlty_T=fc.ss_tlty)
-    uocnU = grid_average_X2Y("S", fc.uocn, "T", "U", grid)
-    vocnU = grid_average_X2Y("S", fc.vocn, "T", "U", grid)
+    prep, uocnU, vocnU = b_grid_prep(cfg, grid, state, fc, strairx_T,
+                                     strairy_T, dt)
 
     extra_diags = {}
     if d.kdyn == 3:
@@ -590,6 +660,31 @@ def step_dyn_transport(ms: ModelStatic, grid: Grid, state: State,
 # the full model step
 # ---------------------------------------------------------------------------
 
+#: the wave_spec_type values whose spectrum the FSD fracture reads (under
+#: 'file' it takes Hs and Tp only, as in the JAX package)
+_SPECTRUM_TYPES = ("profile", "constant", "random")
+
+
+def _step_fsd(cfg, state: State, fc: Forcing, aicen_pre, t2, dt: float):
+    """The FSD after step_therm2: new ice, lateral growth/melt and welding
+    (step_fsd_thermo), then wave fracture (step_dyn_wave). Returns (state,
+    the dafsd_* tendencies)."""
+    trc = dict(state.trcrn)
+    da_new = torch.clamp(t2.aicen - aicen_pre, min=0.0)
+    G_rad = torch.sign(state.frzmlt) * torch.abs(state.frzmlt) * 1.0e-8
+    f, tend = step_fsd_thermo(cfg, dt, fsd=trc["fsd"], aicen=t2.aicen,
+                              da_new=da_new, G_rad=G_rad[None],
+                              frzmlt=state.frzmlt, return_tend=True)
+    spectrum = (fc.wave_spectrum
+                if cfg.forcing.wave_spec_type in _SPECTRUM_TYPES else None)
+    f, wtend = step_dyn_wave(cfg, dt, fsd=f, aicen=t2.aicen, vicen=t2.vicen,
+                             hs_wave=fc.wave_hs, Tp_wave=fc.wave_Tp,
+                             wave_spectrum=spectrum, return_tend=True)
+    tend.update(wtend)
+    trc["fsd"] = f
+    return state.replace(trcrn=trc), tend
+
+
 def _mean_age(st: State):
     if "iage" not in st.trcrn:
         return torch.zeros_like(st.aice)
@@ -600,9 +695,9 @@ def _mean_age(st: State):
 def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                dt: float, timer=None):
     """One full thermo+dyn timestep. Returns (state, FluxOut). `timer`, if
-    given, is called with a phase name ('therm1', 'therm2', 'dyn',
-    'transport', 'ridge', 'ocean') and returns a context manager that the
-    phase runs in."""
+    given, is called with a phase name ('therm1', 'therm2', 'fsd' under
+    tr_fsd, 'dyn', 'transport', 'ridge', 'ocean') and returns a context
+    manager that the phase runs in."""
     cfg = ms.cfg
     registry = ms.registry
     hin_max = ms.hin_max
@@ -636,8 +731,15 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                          state.trcrn, hicen_old=hicen_old,
                          frzmlt=state.frzmlt, Tf=fc.Tf, sst=state.sst, dt=dt,
                          hin_max=hin_max, registry=registry)
+    aicen_pre = state.aicen
     state = state.replace(aicen=t2.aicen, vicen=t2.vicen, vsnon=t2.vsnon,
                           trcrn=t2.trcrn)
+
+    # FSD: thermodynamic evolution and wave fracture (step_dyn_wave)
+    fsd_tend = {}
+    if cfg.tracers.tr_fsd and "fsd" in state.trcrn:
+        with _phase(timer, "fsd"):
+            state, fsd_tend = _step_fsd(cfg, state, fc, aicen_pre, t2, dt)
 
     # pond reservoir change over the thermo phases: positive = water
     # retained on the ice, deducted from the coupler fresh flux. Rain over
@@ -717,7 +819,7 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         dagedtd=(_mean_age(state) - age_posttherm) / dt,
         dpnd_initial=agg["dpnd_initial"], dpnd_expon=agg["dpnd_expon"],
         dpnd_freebd=agg["dpnd_freebd"], dpnd_dlid=agg["dpnd_dlid"],
-        ncat_fluxes={**agg["ncat_fluxes"],
+        ncat_fluxes={**agg["ncat_fluxes"], **fsd_tend,
                      **{k: dyn[k] for k in _DYN_NCAT_KEYS if k in dyn},
                      "dpnd_melt": t2.dpnd_melt,
                      "aice_init": aice_init},

@@ -121,8 +121,7 @@ def test_dynamics_and_transport_option_sets_run_through_the_cli(opts,
 
 def test_unported_option_sets_raise_naming_the_roadmap():
     from cice_tpu_torch.model.driver import Model
-    for opts, item in (("dedd", "ROADMAP A6"),
-                       ("fsd12", "ROADMAP A6"), ("evpwide", "ROADMAP A8"),
+    for opts, item in (("modal", "ROADMAP A6"), ("evpwide", "ROADMAP A8"),
                        ("gridc,evpwide", "ROADMAP A8"),
                        ("ioasync", "ROADMAP A7")):
         cfg = tcli._default_test_cfg(_args(opts, type="smoke"),

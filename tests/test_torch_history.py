@@ -17,7 +17,8 @@ history_fields.py) against cice_tpu/io/history.py.
   of the reference that misnames every field after the first multi-row
   one): the port's npz is held against the JAX stream's rows.
 - Stream membership (hist_field_freq) and snapshot rows, the restart
-  payload round trip, and the A6 raises for the groups not ported yet.
+  payload round trip, and the A6 raises for the groups not ported yet
+  (the biogeochemistry).
 
 The JAX side runs remap_kernel='xla' (its fused kernels are f32-only); on
 CPU tensors every port wrapper reaches its plain version.
@@ -399,15 +400,11 @@ def test_restart_payload_round_trip(runs):
 
 
 UNPORTED = {
-    "snow": {"tracers.tr_snow": True},
-    "fsd": {"tracers.tr_fsd": True},
     "bgc": {"zbgc.skl_bgc": True},
     "zbgc": {"zbgc.z_tracers": True},
     "hbrine": {"tracers.tr_brine": True},
-    "drag": {"forcing.formdrag": True},
     "aero": {"tracers.tr_aero": True, "domain.n_aero": 1},
     "iso": {"tracers.tr_iso": True, "domain.n_iso": 1},
-    "mushy": {"thermo.ktherm": 2},
 }
 
 

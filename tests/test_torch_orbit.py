@@ -142,15 +142,3 @@ def test_unknown_ocean_passes_the_default_ocean_through(grids):
                                    datasets={})
         ref = jforcing.get_forcing(jc, jg, 0.0, 1.0, jnp.asarray(aice))
         _forcing_close(got, ref, ocn)
-
-
-def test_wave_spectra_raise_naming_the_roadmap(grids):
-    tcfg, _ = grids
-    for wst in ("constant", "file"):
-        cfg = tcfg.with_overrides(**{"forcing.wave_spec_type": wst,
-                                     "forcing.wave_spec_file": "x.npz"})
-        g = tmake_grid(cfg, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            tforcing.get_forcing(cfg, g, 0.0, 1.0,
-                                 torch.zeros(g.shape, dtype=g.dtype),
-                                 datasets={})

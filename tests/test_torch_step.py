@@ -277,11 +277,11 @@ def test_transport_check_failure_aborts(monkeypatch):
 
 
 UNPORTED = {
-    "dEdd": {"shortwave.shortwave": "dEdd"},
-    "mushy": {"thermo.ktherm": 2},
-    "fsd": {"tracers.tr_fsd": True},
-    "tr_snow": {"tracers.tr_snow": True},
-    "formdrag": {"forcing.formdrag": True},
+    "tr_aero": {"tracers.tr_aero": True, "domain.n_aero": 1},
+    "tr_iso": {"tracers.tr_iso": True, "domain.n_iso": 1},
+    "tr_brine": {"tracers.tr_brine": True},
+    "highfreq": {"forcing.highfreq": True},
+    "dEdd_algae": {"shortwave.shortwave": "dEdd", "zbgc.dEdd_algae": True},
 }
 
 

@@ -140,13 +140,6 @@ def test_shortwave_ccsm3_matches_jax(inputs):
     assert float(np.asarray(ref.fswthru).max()) > 0.0
 
 
-def test_dedd_shortwave_is_not_ported():
-    from cice_tpu_torch.model.step import check_ported
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        check_ported(TConfig().with_overrides(
-            **{"shortwave.shortwave": "dEdd"}))
-
-
 def _therm_args(fc, col):
     """Arguments of temperature_changes as numpy, with the boundary-layer
     coefficients and shortwave partition of the JAX package."""
