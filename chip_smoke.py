@@ -60,7 +60,7 @@ per source, started together), then:
      (corner means of the face velocities, Bentsen edge areas), max abs
      error 0.0, each timed beside its bound; gx1pop,gridc (5 days where
      the C-grid step stays under ~0.5 s, else 1) and gx1pop,dynpicard
-     (1 day) through the baseline runner as in phase 9, under the labels
+     (6 steps) through the baseline runner as in phase 9, under the labels
      gx1pop+gridc and gx1pop+dynpicard of baselines/r05, with K2 once per
      step and K1 never; one step each of gx1pop with gridcd, eap,
      dynanderson, upwind, vanleer and advection=remap_q (finite, a clean
@@ -79,7 +79,25 @@ per source, started together), then:
      and with each of snwgrain, fsd12, pondtopo, pondsealvl, saltflux, fdrag,
      alt05 and alt06 (finite, aice <= 1, extent in both hemispheres, a
      clean `check_state`, K1 and K2 once per step; ms, peak memory and
-     host reads per step).
+     host reads per step);
+ 12. the biogeochemistry at 320x384: gx1pop_step(remap_kernel='auto') with
+     bgcz (the z tracers on a 7-layer brine column: NT=266) for 3 steps
+     (K1 + K2; the last two timed by phase, with each phase's peak
+     memory), then K1, K2 and K3 against their plain versions on that
+     state, max abs error 0.0 on every output, each timed beside the bound
+     of this table and this run's moments, K2's chunk count printed; one
+     step of gx1pop_step (K1 + K3) from that state; three steps of
+     gx1pop,evp1d with each of aerosol, isotope, modal, bgcskl, bgcz,
+     zaero, alt03, alt04 and forcing.highfreq=true (finite, aice <= 1,
+     extent in both hemispheres, a clean `check_state`; K1 once per step
+     where the dynamics are the B-grid fused EVP, K2 once per step where
+     the transport is the exact remap; ms, PyTorch operations, host reads
+     and peak MB per step); gx1pop,evp1d,bgcz for a day through the
+     baseline runner (daily cdf1 history with the zbgc and hbrine groups,
+     npz restarts) and 24 steps of gx1pop,evp1d,aerosol, each with the
+     freshwater and area checks on every step and, report-only, the
+     inventory change of nitrate or of aerosol species 1 beside its
+     deposition less its flux to the ocean.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -110,20 +128,27 @@ def fail(msg: str) -> None:
 
 class PhaseTimer:
     """`timer` of model_step: CUDA events around every phase; `totals()`
-    gives the ms per phase name summed over its calls."""
+    gives the ms per phase name summed over its calls, and `peak_mb` the
+    largest allocation above each phase's start (MB, the allocator's host
+    count: no sync)."""
 
     def __init__(self):
         self.events = []
+        self.peak_mb: dict = {}
 
     @contextlib.contextmanager
     def __call__(self, name):
         import torch
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         a.record()
         yield
         b.record()
         self.events.append((name, a, b))
+        self.peak_mb[name] = max(self.peak_mb.get(name, 0.0), (
+            torch.cuda.max_memory_allocated() - held) / 1e6)
 
     def totals(self) -> dict:
         import torch
@@ -615,9 +640,11 @@ def c_grid_and_other_dynamics(dev, smi, reset_counters, read_counters):
                            [f"setup.npt={days}"],
                            {"evp_fused": 0, "transport_fused": 24 * days,
                             "tracer_fluxes": 0})
+        # 6 hourly steps: a VP step takes 13-17 s (NVIDIA H100 80GB HBM3,
+        # 700 W)
         out["dynpicard"] = run("gx1pop,dynpicard", "gx1pop+dynpicard",
-                               ["setup.npt=1"],
-                               {"evp_fused": 0, "transport_fused": 24,
+                               ["setup.npt=6", 'setup.npt_unit="1"'],
+                               {"evp_fused": 0, "transport_fused": 6,
                                 "tracer_fluxes": 0})
         # ---- (d) one full-width step of each other option set ----------
         out["single"] = {}
@@ -898,6 +925,316 @@ def column_physics(dev, smi, reset_counters, read_counters):
                                                reads=reads,
                                                launches=launches)
             del sm
+    finally:
+        shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
+    return out
+
+
+#: the biogeochemical option sets of phase 12 (b), on top of gx1pop,evp1d
+#: ('forcing.highfreq=true' rides as a --set)
+BGC_SETS = ("aerosol", "isotope", "modal", "bgcskl", "bgcz", "zaero",
+            "alt03", "alt04", "forcing.highfreq=true")
+
+
+def _exact(got, ref) -> float:
+    """Max abs difference over paired outputs (NaN if any side is NaN)."""
+    import torch
+    err = 0.0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape:
+            return float("nan")
+        d = (g - r).abs()
+        if not bool(torch.isfinite(d).all()):
+            return float("nan")
+        err = max(err, float(d.max()))
+    return err
+
+
+def biogeochemistry(dev, smi, reset_counters, read_counters):
+    """Phase 12: the biogeochemistry at gx1pop's full width. (a) K1, K2
+    and K3 against their plain versions on the bgcz state (NT=266) after 3
+    steps of gx1pop_step('auto') with bgcz (K1 + K2; the last two timed by
+    phase, with each phase's peak memory), max abs error 0.0,
+    each timed beside its bound; then one step of gx1pop_step (K1 + K3)
+    from that state; (b) three steps of gx1pop,evp1d with each set of
+    BGC_SETS; (c) a day of gx1pop,evp1d,bgcz through the baseline runner
+    and 24 steps of gx1pop,evp1d,aerosol, each with the budgets on every
+    step and the inventory change of a tracer beside its sources and
+    sinks (report-only)."""
+    import shutil
+
+    import torch
+
+    from cice_tpu_torch import config as C
+    from cice_tpu_torch.cli.main import OPTION_SETS
+    from cice_tpu_torch.columns.aero_iso import FAERO_DEFAULT
+    from cice_tpu_torch.dynamics.evp import evp_solve
+    from cice_tpu_torch.kernels import evp as kevp, remap as kremap
+    from cice_tpu_torch.measure import (bound_ms, count_host_reads,
+                                        count_ops, evp_state_problem,
+                                        flux_case, timed_ms,
+                                        transport_state_problem)
+    from cice_tpu_torch.model.diagnostics import (check_state,
+                                                  hemispheric_budgets,
+                                                  runtime_diags)
+    from cice_tpu_torch.model.driver import Model
+
+    out = {}
+    bgcz = dict(OPTION_SETS["bgcz"])
+
+    # ---- (a) the kernels on the bgcz state -----------------------------
+    m = Model(C.gx1pop_step(remap_kernel="auto").with_overrides(**bgcz),
+              device=dev)
+    timer = PhaseTimer()
+    reset_counters()
+    m.run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run(2, timer=timer)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 2
+    launches_auto = read_counters()
+    phase = {k: v / 2 for k, v in timer.totals().items()}
+    print(f"bgcz at gx1pop (320x384, f32, K1 + K2, box2001) on {smi}: "
+          f"{step_ms:.3f} ms per step (host clock, steps 2 and 3); phases "
+          "by CUDA events (ms per step, MB allocated above the phase's "
+          "start at its peak): " + ", ".join(
+              f"{k} {v:.3f} ({timer.peak_mb[k]:.0f} MB)"
+              for k, v in phase.items()))
+    if launches_auto != {"evp_fused": 3, "transport_fused": 3,
+                         "tracer_fluxes": 0}:
+        fail(f"bgcz, 3 steps through K1 + K2: launches {launches_auto}")
+    dt = m.cfg.setup.dt
+    ny, nx = m.grid.shape
+    args, kw = evp_state_problem(m.static, m.grid, m.state, m.forcing,
+                                 m.flux.strairx, m.flux.strairy, dt)
+    k1_err = _exact(kevp.evp_solve_fused(*args, **kw), evp_solve(*args, **kw))
+    targs, moving = transport_state_problem(m.static, m.grid, m.state, dt)
+    table = targs[-1]
+    ncat = targs[3].shape[0] - 1
+    k2_err = _exact(kremap.transport_fused(*targs),
+                    kremap.transport_plain(*targs))
+    fargs, tstack = flux_case(*targs)
+    k3_err = _exact(kremap.tracer_fluxes_fused(*fargs, tstack=tstack),
+                    kremap.tracer_fluxes_plain(*fargs))
+    torch.cuda.synchronize()
+    types = [t.ttype for t in table]
+    z = m.state.trcrn
+    nit_range = (float(z["bgc_Nit"].min()), float(z["bgc_Nit"].max()))
+    print(f"K1, K2 and K3 on the bgcz state at gx1pop (3 steps, K1 + K2): "
+          f"NT={len(table)} ({types.count(1)} of type 1, {types.count(2)} "
+          f"of type 2, {types.count(3)} of type 3), max departure "
+          f"{moving:.3e} cells, bgc_Nit in [{nit_range[0]:.4f}, "
+          f"{nit_range[1]:.4f}]; max abs error K1 {k1_err} against "
+          f"evp_solve, K2 {k2_err} against transport_plain, K3 {k3_err} "
+          "against tracer_fluxes_plain")
+    if not (k1_err == 0.0 and k2_err == 0.0 and k3_err == 0.0
+            and moving > 1e-4 and len(table) == 266):
+        fail("a kernel differs from its plain version on the bgcz state")
+    active, needed = kremap.work_fractions(*targs[:3])
+    k2i = kremap.kernel_info(table)
+    kern = {
+        "K1": dict(ms=timed_ms(lambda: kevp.evp_solve_fused(*args, **kw), 5),
+                   plain_ms=timed_ms(lambda: evp_solve(*args, **kw), 2),
+                   bound=bound_ms(*kevp.bound_bytes_flops(
+                       ny, nx, args[1].ndte)), err=k1_err),
+        "K2": dict(ms=timed_ms(lambda: kremap.transport_fused(*targs), 5),
+                   plain_ms=timed_ms(lambda: kremap.transport_plain(*targs),
+                                     2),
+                   bound=bound_ms(*kremap.bound_bytes_flops(
+                       table, ncat, ny, nx, active, needed)), err=k2_err,
+                   chunks=k2i["chunks"], chunk=k2i["chunk"],
+                   smem=k2i["smem"], tile=k2i["tile"]),
+        "K3": dict(ms=timed_ms(lambda: kremap.tracer_fluxes_fused(
+                       *fargs, tstack=tstack), 5),
+                   plain_ms=timed_ms(lambda: kremap.tracer_fluxes_plain(
+                       *fargs), 2),
+                   bound=bound_ms(*kremap.tracer_fluxes_bound_bytes_flops(
+                       table, ncat, ny, nx, active, needed)), err=k3_err,
+                   tstack_mb=tstack.numel() * tstack.element_size() / 1e6),
+    }
+    for nm, k in kern.items():
+        print(f"{nm} on the bgcz state on {smi}: kernel {k['ms']:.4f} ms, "
+              f"plain {k['plain_ms']:.3f} ms per call; bound "
+              f"{k['bound'][0]:.4f} ms by {k['bound'][1]}"
+              + (f"; {k['chunks']} tracer chunks of up to {k['chunk']} "
+                 f"reconstructions, tile {k['tile'][0]}x{k['tile'][1]}, "
+                 f"{k['smem']} B shared memory per block" if nm == "K2"
+                 else "")
+              + (f"; tstack {k['tstack_mb']:.1f} MB" if nm == "K3" else ""))
+    out.update(kernels=kern, active=active, needed=needed, nt=len(table),
+               launches_auto=launches_auto, step_ms=step_ms, phase_ms=phase,
+               phase_peak_mb=timer.peak_mb)
+    del args, kw, targs, fargs, tstack
+    # one step of gx1pop_step (K1 + K3) from the bgcz state
+    m3 = Model(C.gx1pop_step().with_overrides(**bgcz), device=dev)
+    m3.state, m3.calendar = m.state, m.calendar
+    del m
+    reset_counters()
+    m3.step()
+    torch.cuda.synchronize()
+    out["launches_k3"] = read_counters()
+    tc = {k: float(v) for k, v in m3.tchecks.items()}
+    fin = all(bool(torch.isfinite(t).all()) for t in m3.state.trcrn.values())
+    print(f"one step of gx1pop_step (K1 + K3) with bgcz from that state: "
+          f"launches {out['launches_k3']}, finite {fin}, checks {tc}")
+    if out["launches_k3"] != {"evp_fused": 1, "transport_fused": 0,
+                              "tracer_fluxes": 1} or not fin or tc["oob"]:
+        fail("bgcz through K1 + K3 failed")
+    del m3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg_for, run = baseline_runner(dev, smi, reset_counters, read_counters)
+    try:
+        # ---- (b) three steps of gx1pop,evp1d with each set --------------
+        out["sets"] = {}
+        for opt in BGC_SETS:
+            is_set = "=" not in opt
+            opts = "gx1pop,evp1d" + (f",{opt}" if is_set else "")
+            label = "gx1pop_evp1d_" + (opt if is_set else "highfreq")
+            sm = Model(cfg_for(opts, label, [] if is_set else [opt]),
+                       device=dev)
+            d_ = sm.cfg.dynamics
+            per_step = {"evp_fused": int(d_.kdyn == 1 and
+                                         d_.evp_algorithm == "fused_pallas"),
+                        "transport_fused": int(d_.advection == "remap"),
+                        "tracer_fluxes": 0}
+            gc.collect()
+            reset_counters()
+            sm.step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            sm.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak_mb = (torch.cuda.max_memory_allocated() - held) / 1e6
+            reads = []
+            ops = count_ops(lambda: reads.append(count_host_reads(sm.step)))
+            torch.cuda.synchronize()
+            launches = read_counters()
+            st = sm.state
+            fin = all(bool(torch.isfinite(t).all()) for t in (
+                st.aicen, st.vicen, st.vsnon, st.uvel, st.vvel, st.sst,
+                *st.trcrn.values()))
+            d = {k: float(v) for k, v in runtime_diags(sm.grid, st).items()}
+            cs = {k: float(v) for k, v in check_state(st).items()}
+            expect = {k: 3 * v for k, v in per_step.items()}
+            ok = (fin and d["aice_max"] <= 1.0 + 1e-6 and d["extent_nh"] > 0
+                  and d["extent_sh"] > 0 and not cs["unstable"]
+                  and not cs["nonfinite"] and launches == expect)
+            print(f"{opts}{'' if is_set else ' ' + opt} on {smi}: "
+                  f"{ms:.1f} ms for the second step (host clock), "
+                  f"{peak_mb:.1f} MB allocated above the state at its peak, "
+                  f"{ops} PyTorch operations and {reads[0]} host reads in "
+                  f"the third, NT {len(st.trcrn)} registry tracers, "
+                  f"launches {launches} (expected {expect}), finite {fin}, "
+                  f"aice max {d['aice_max']:.4f}, extent nh "
+                  f"{d['extent_nh']:.3e} sh {d['extent_sh']:.3e}, "
+                  f"check_state {cs}: {'PASS' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{opts} {opt}: the oracle failed")
+            out["sets"][label] = dict(ms=ms, peak_mb=peak_mb, ops=ops,
+                                      reads=reads[0], launches=launches)
+            del sm
+
+        # ---- (c) a day of bgcz, 24 steps of aerosol ---------------------
+        def recorder(inventory, sources):
+            """each_step callback: the freshwater and area checks of the
+            step, and the tracer inventory and its sources (kg or mmol)
+            accumulated over the steps."""
+            rec = dict(water=[], area=[], neg=[], inv=[], src=0.0,
+                       prev=None)
+
+            def each(bm):
+                g = bm.grid
+                st = bm.state
+                w = (g.tarea * g.hm).double()
+                if rec["prev"] is not None:
+                    b = hemispheric_budgets(
+                        g, rec["prev"], st, bm.flux, bm.forcing,
+                        bm.cfg.setup.dt,
+                        frazil_in_fresh=bm.cfg.forcing.update_ocn_f,
+                        pond_lvl=bm.cfg.tracers.tr_pond_lvl)
+                    rec["water"].append(abs(float(b["water_residual"])) /
+                                        max(abs(float(b["dM"])),
+                                            abs(float(b["water_in"])), 1.0))
+                rec["prev"] = st
+                rec["area"].append(float(bm.tchecks["cons_err_area"]))
+                rec["neg"].append(float(bm.tchecks["neg_mass_depth"]))
+                rec["inv"].append(float(torch.sum(inventory(st) * w)))
+                rec["src"] += float(torch.sum(sources(bm) * w)) * \
+                    bm.cfg.setup.dt
+            return rec, each
+
+        def nitrate(st):
+            # content per layer = C * vicen * fbri / nblyr
+            return (st.trcrn["bgc_Nit"].double().mean(1) *
+                    st.vicen.double() * st.trcrn["fbri"].double()).sum(0)
+
+        def nitrate_src(bm):
+            # no deposition of nitrate; the flux to the ocean leaves
+            return -bm.flux.ncat_fluxes["fzbgc_bgc_Nit"].double()
+
+        def aerosol1(st):
+            a = st.trcrn["aerosno"][:, :2] + st.trcrn["aeroice"][:, :2]
+            return (a.double().sum(1) * st.aicen.double()).sum(0)
+
+        def aerosol1_src(bm):
+            # deposition where there is ice, less the flux to the ocean
+            st = bm.state
+            ice = (st.aicen > 1e-11).double() * st.aicen.double()
+            return ice.sum(0) * FAERO_DEFAULT[0] - \
+                bm.flux.ncat_fluxes["faero_ocn"][0].double()
+
+        def report(what, rec, day):
+            rec.pop("prev")
+            change = rec["inv"][-1] - rec["inv"][0]
+            print(f"{what} on {smi}: freshwater residual / budget at most "
+                  f"{max(rec['water']):.3e} (1 % rule), transport area "
+                  f"error at most {max(rec['area']):.3e} (1e-5), negative "
+                  f"mass before the floor at most {max(rec['neg']):.3e} "
+                  f"deep (1e-9); inventory {rec['inv'][0]:.6e} -> "
+                  f"{rec['inv'][-1]:.6e} (change {change:.6e}), sources "
+                  f"less sinks over the steps {rec['src']:.6e}, residual "
+                  f"{change - rec['src']:.3e} (report-only: in-ice "
+                  "reactions, ridging and zapped ice move it too)")
+            if not (max(rec["water"]) <= 1e-2 and max(rec["area"]) <= 1e-5
+                    and max(rec["neg"]) <= 1e-9
+                    and all(map(math.isfinite, rec["inv"]))):
+                fail(f"{what}: a budget is off")
+            return dict(day or {}, water_max=max(rec["water"]),
+                        area_max=max(rec["area"]),
+                        neg_mass_depth_max=max(rec["neg"]),
+                        inventory=(rec["inv"][0], rec["inv"][-1]),
+                        sources=rec["src"], residual=change - rec["src"])
+
+        rec, each = recorder(nitrate, nitrate_src)
+        day = run("gx1pop,evp1d,bgcz", "gx1pop+bgcz",
+                  ["setup.npt=1", "setup.conserv_check=true",
+                   "setup.diagfreq=0"],
+                  {"evp_fused": 24, "transport_fused": 24,
+                   "tracer_fluxes": 0}, each_step=each)
+        out["bgcz_day"] = report("gx1pop,evp1d,bgcz for a day: nitrate", rec,
+                                 day)
+        am = Model(cfg_for("gx1pop,evp1d,aerosol", "gx1pop+aerosol",
+                           ["setup.conserv_check=true", "setup.diagfreq=0"]),
+                   device=dev)
+        rec, each = recorder(aerosol1, aerosol1_src)
+        reset_counters()
+        for _ in range(24):
+            am.step()
+            each(am)
+        launches = read_counters()
+        if launches != {"evp_fused": 24, "transport_fused": 24,
+                        "tracer_fluxes": 0}:
+            fail(f"gx1pop,evp1d,aerosol: launches {launches}")
+        out["aerosol_day"] = report(
+            "gx1pop,evp1d,aerosol for 24 steps: aerosol species 1", rec,
+            dict(launches=launches))
+        del am
     finally:
         shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
     return out
@@ -1302,6 +1639,8 @@ def main() -> int:
                                       read_counters)
     # ---- the column physics of CICE's standard configuration -----------
     cols = column_physics(dev, smi, reset_counters, read_counters)
+    # ---- the biogeochemistry --------------------------------------------
+    bgc = biogeochemistry(dev, smi, reset_counters, read_counters)
     on_base = {k: {r: base[r]["launches"][k]
                    for r in ("gx1pop", "gx3pop", "tx1pop")}
                for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
@@ -1309,6 +1648,20 @@ def main() -> int:
                    "mushy_dedd_day": cols["day"]["launches"][k],
                    **{o: v["launches"][k] for o, v in cols["sets"].items()}}
                for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+    on_bgc = {k: {"bgcz_auto_3_steps": bgc["launches_auto"][k],
+                  "bgcz_k3_step": bgc["launches_k3"][k],
+                  "bgcz_day": bgc["bgcz_day"]["launches"][k],
+                  "aerosol_24_steps": bgc["aerosol_day"]["launches"][k],
+                  **{o: v["launches"][k] for o, v in bgc["sets"].items()}}
+              for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+
+    def on_bgcz(kid, kname):
+        k = bgc["kernels"][kid]
+        return {"ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
+                "max_abs_err": k["err"], "nt": bgc["nt"],
+                "launches": on_bgc[kname],
+                **({"chunks": k["chunks"]} if kid == "K2" else {})}
 
     results = [
         {"name": "evp_fused", "route": "cuda",
@@ -1322,7 +1675,8 @@ def main() -> int:
                      "plain_ms": cols["k1"]["plain_ms"],
                      "bound_ms": cols["k1"]["bound"][0],
                      "max_abs_err": cols["k1"]["err"],
-                     "launches": on_cols["evp_fused"]}},
+                     "launches": on_cols["evp_fused"]},
+         "bgcz": on_bgcz("K1", "evp_fused")},
         {"name": "transport_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/transport_fused.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:653",
@@ -1343,7 +1697,8 @@ def main() -> int:
                      "plain_ms": cols["k2"]["plain_ms"],
                      "bound_ms": cols["k2"]["bound"][0],
                      "max_abs_err": cols["k2"]["err"],
-                     "launches": on_cols["transport_fused"]}},
+                     "launches": on_cols["transport_fused"]},
+         "bgcz": on_bgcz("K2", "transport_fused")},
         {"name": "tracer_fluxes", "route": "cuda",
          "source": "cice_tpu_torch/csrc/tracer_fluxes.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:261",
@@ -1357,7 +1712,8 @@ def main() -> int:
          "cgrid": {"ms": cgrid["k3_cgrid"]["ms"],
                    "plain_ms": cgrid["k3_cgrid"]["plain_ms"],
                    "bound_ms": cgrid["k3_cgrid"]["bound"][0],
-                   "max_abs_err": cgrid["k3_cgrid"]["err"]}},
+                   "max_abs_err": cgrid["k3_cgrid"]["err"]},
+         "bgcz": on_bgcz("K3", "tracer_fluxes")},
     ]
     out = {"kernels": results}
     # ridging passes on the main path's last state and deformation
@@ -1387,7 +1743,8 @@ def main() -> int:
                                  "dyn": dyn_launches},
                        freshwater_residual=wres, ridge_passes=rdg["npass"],
                        transport_checks=tc, restart_history=rh,
-                       baseline=base, cgrid=cgrid, columns=cols), f,
+                       baseline=base, cgrid=cgrid, columns=cols,
+                       biogeochemistry=bgc), f,
                   indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ constants are (3, 1, 1, 1) tensors and each element sees the JAX package's
 operations in its order. The sub-column kinds keep separate recursions,
 because their layer stacks differ.
 
-Aerosols in snow (tr_aero) and ice-algal shading (zbgc dEdd_algae) belong
-to the biogeochemistry and raise naming ROADMAP A6.
+Aerosols in snow (tr_aero) darken the top snow layer with per-band optics
+(vis in band 0, near-IR in bands 1-2); ice-algal chlorophyll (zbgc
+dEdd_algae) adds absorption to the bottom ice layer in band 0 only.
 """
 
 from __future__ import annotations
@@ -160,12 +161,14 @@ def _adding(layers, mu0, alb_ocn):
     return albdir, albdif, absdir, absdif, fdir_net[n], fdif_net[n]
 
 
-def _ice_layer_iops(hi, nilyr, ponded: bool, k_scale: float = 1.0):
+def _ice_layer_iops(hi, nilyr, ponded: bool, k_scale: float = 1.0,
+                    tau_alg=None):
     """IOPs of the ice layers for all bands: a dedicated surface
     scattering layer (and, for bare ice, a drained layer) above nilyr
     uniform interior layers. Thin ice shrinks the surface classes to at
     most a third each. k_scale: R_ice/R_pnd extinction tuning of the
-    surface classes."""
+    surface classes; tau_alg: absorption optical depth of ice-algal
+    chlorophyll added to the bottom layer in band 0 (visible) only."""
     if ponded:
         k_ssl = _bands([k * k_scale for k in K_PICE_SSL], hi)
         w_ssl = _bands(W_PICE_SSL, hi)
@@ -189,24 +192,85 @@ def _ice_layer_iops(hi, nilyr, ponded: bool, k_scale: float = 1.0):
     out = [(h_ssl * k_ssl, w_ssl * ones, g)]
     if not ponded:
         out.append((h_dl * k_dl, w_dl * ones, g))
-    for _ in range(nilyr):
-        out.append((k_int * hl, w_int * ones, g))
+    for k in range(nilyr):
+        tau = k_int * hl
+        w0 = w_int * ones
+        if tau_alg is not None and k == nilyr - 1:
+            t2 = tau + torch.clamp(tau_alg, min=0.0)
+            vis = _bands((1.0, 0.0, 0.0), hi) > 0.5
+            w0 = torch.where(vis, w0 * tau / torch.clamp(t2, min=1e-12), w0)
+            tau = torch.where(vis, t2, tau)
+        out.append((tau, w0, g))
     return out
 
 
-def _snow_iops(hs, nslyr, rsnw_m):
+# Aerosol-in-snow optics per species class, [vis, nir] per property: the
+# SNICAR coefficients of the Icepack kaer_tab/waer_tab/gaer_tab (species
+# bc1, bc2, dust1..dust4; the nir entry serves both near-IR bands).
+AER_OPTICS = [
+    # (ext m2/kg (vis, nir), ssa (vis, nir), g (vis, nir))
+    ((11580.0, 3687.0), (0.291, 0.174), (0.353, 0.287)),   # bc1 (fresh BC)
+    ((25799.0, 8587.0), (0.744, 0.474), (0.598, 0.494)),   # bc2 (aged BC)
+    ((196.5, 209.3), (0.972, 0.949), (0.673, 0.697)),      # dust1
+    ((2665.9, 1538.5), (0.943, 0.897), (0.684, 0.668)),    # dust2
+    ((840.8, 596.1), (0.946, 0.903), (0.716, 0.687)),      # dust3
+    ((387.5, 276.0), (0.947, 0.906), (0.757, 0.712)),      # dust4
+]
+MODAL_BC_ENHANCE = 1.5   # internal-mixing absorption enhancement of BC
+#                          (modal_aero; Flanner et al. 2012)
+
+
+def _aerosol_bands(s: int, modal: bool):
+    """(ext, ssa, g*ssa) of aerosol species s on the three bands as Python
+    floats (vis in band 0, nir in bands 1-2); modal_aero enhances the
+    absorption of the BC species and renormalises their ssa."""
+    ext, ssa, ga = AER_OPTICS[s % len(AER_OPTICS)]
+    out = []
+    for bi in (0, 1, 1):
+        ext_b, ssa_b, g_b = ext[bi], ssa[bi], ga[bi]
+        if modal and s % len(AER_OPTICS) in (0, 1):
+            abs_b = ext_b * (1.0 - ssa_b) * MODAL_BC_ENHANCE
+            sca_b = ext_b * ssa_b
+            ext_b = abs_b + sca_b
+            ssa_b = sca_b / ext_b
+        out.append((ext_b, ssa_b, g_b * ssa_b))
+    return tuple(zip(*out))
+
+
+def _mix_aerosol(tau, w0, g, aero_mass, modal: bool):
+    """Blend aerosol extinction into a (tau, w0, g) layer on all bands.
+    aero_mass: list over species of kg/m^2 loadings in the layer."""
+    tau_t, sw_t, gsw_t = tau, w0 * tau, g * w0 * tau
+    for s, mass in enumerate(aero_mass):
+        ext_b, ssa_b, gssa_b = (_bands(v, mass)
+                                for v in _aerosol_bands(s, modal))
+        ta = ext_b * torch.clamp(mass, min=0.0)
+        tau_t = tau_t + ta
+        sw_t = sw_t + ssa_b * ta
+        gsw_t = gsw_t + gssa_b * ta
+    w0_t = sw_t / torch.clamp(tau_t, min=1e-12)
+    g_t = gsw_t / torch.clamp(sw_t, min=1e-12)
+    return tau_t, torch.clamp(w0_t, 0.0, 1.0), torch.clamp(g_t, 0.0, 1.0)
+
+
+def _snow_iops(hs, nslyr, rsnw_m, aero_snow=None, modal: bool = False):
     """Snow layer IOPs: geometric-optics extinction tau = 3 h rho_s /
-    (2 rho_i r) and the grain-radius single-scattering albedo fit."""
+    (2 rho_i r) and the grain-radius single-scattering albedo fit;
+    aerosol loadings darken the top (surface-scavenged) snow layer."""
     hl = hs / nslyr
     tau = 1.5 * hl * cst.rhos / (cst.rhoi * torch.clamp(rsnw_m, min=1e-5))
     w0 = torch.clamp(1.0 - _bands(W0_SNOW_COEF, hs) * torch.sqrt(rsnw_m),
                      0.3, 1.0)
-    return [(tau, w0 * torch.ones_like(hs), torch.full_like(hs, G_SNOW))
-            for _ in range(nslyr)]
+    out = [(tau, w0 * torch.ones_like(hs), torch.full_like(hs, G_SNOW))
+           for _ in range(nslyr)]
+    if aero_snow is not None and len(aero_snow):
+        out[0] = _mix_aerosol(*out[0], aero_snow, modal)
+    return out
 
 
 def _column(mu0, *, hs, hi, hpnd, nslyr, nilyr, rsnw_m, kind,
-            R_ice=0.0, R_pnd=0.0):
+            R_ice=0.0, R_pnd=0.0, aero_snow=None, modal=False,
+            tau_alg=None):
     """Albedos and absorption of one sub-column kind ('snow'|'bare'|'pond')
     for all bands (each result has the bands on its leading dimension)."""
     ponded = kind == "pond"
@@ -218,14 +282,15 @@ def _column(mu0, *, hs, hi, hpnd, nslyr, nilyr, rsnw_m, kind,
     layers = []
     nsl = 0
     if kind == "snow":
-        layers += _snow_iops(hs, nslyr, rsnw_m)
+        layers += _snow_iops(hs, nslyr, rsnw_m, aero_snow, modal)
         nsl = nslyr
     elif ponded:
         # pond water: a pure absorber
         layers.append((_bands(K_POND_W, hpnd) * hpnd, torch.zeros_like(hpnd),
                        torch.zeros_like(hpnd)))
         nsl = 1
-    ice_layers = _ice_layer_iops(hi, nilyr, ponded, k_scale=k_scale)
+    ice_layers = _ice_layer_iops(hi, nilyr, ponded, k_scale=k_scale,
+                                 tau_alg=tau_alg)
     n_srf_ice = len(ice_layers) - nilyr    # the dedicated SSL (+DL)
     layers += ice_layers
     albdir, albdif, absdir, absdif, trdir, trdif = _adding(
@@ -253,16 +318,10 @@ def shortwave_dEdd(Tsf, hi, hs, hpnd, apeff, swvdr, swvdf, swidr, swidf,
 
     Tsf/hi/hs/hpnd/apeff: (ncat, ny, nx); sw* and coszen (ny, nx).
     Sub-column area weights per category: ponded = apeff, snow-covered
-    = (1-apeff)*fsnow_patch, bare = the remainder."""
-    if aero_snow is not None:
-        raise NotImplementedError(
-            "aerosols in delta-Eddington snow (tr_aero) are not ported yet "
-            "(ROADMAP A6: column options)")
-    if tau_alg is not None:
-        raise NotImplementedError(
-            "ice-algal shading in delta-Eddington (zbgc dEdd_algae) is not "
-            "ported yet (ROADMAP A6: column options)")
-    del modal_aero
+    = (1-apeff)*fsnow_patch, bare = the remainder. aero_snow: optional
+    list over species of (ncat, ny, nx) kg/m^2 snow aerosol loadings
+    (tr_aero; modal_aero enhances BC absorption); tau_alg: optional (ncat,
+    ny, nx) ice-algal absorption optical depth (zbgc dEdd_algae)."""
     mu0 = torch.clamp(coszen, min=MU0_MIN) * torch.ones_like(Tsf)
     hi_s = torch.clamp(hi, min=0.0)
     hs_s = torch.clamp(hs, min=0.0)
@@ -281,7 +340,8 @@ def shortwave_dEdd(Tsf, hi, hs, hpnd, apeff, swvdr, swvdf, swidr, swidf,
 
     common = dict(hs=hs_s, hi=torch.clamp(hi_s, min=0.001), hpnd=hpnd,
                   nslyr=nslyr, nilyr=nilyr, rsnw_m=rsnw_m,
-                  R_ice=cfg_sw.R_ice, R_pnd=cfg_sw.R_pnd)
+                  R_ice=cfg_sw.R_ice, R_pnd=cfg_sw.R_pnd,
+                  aero_snow=aero_snow, modal=modal_aero, tau_alg=tau_alg)
     cols = {k: _column(mu0, kind=k, **common)
             for k in ("snow", "bare", "pond")}
 

@@ -8,14 +8,13 @@ grid[, forcing]) that returns its planes as tensors on the model's device.
 `build_fields(cfg)` gives the registry in the JAX package's order, so the
 names, units, dimensions and rows of the two packages' history files agree.
 
-The groups of the biogeochemistry, which is not ported yet (bgc, zbgc,
-hbrine, aerosols and isotopes), raise `NotImplementedError` naming ROADMAP
-A6 when the configuration enables them; they never write zeros in place of
-a field.
+The groups of the biogeochemistry (bgc, zbgc, hbrine, aerosols and
+isotopes) follow the JAX package's registration and naming.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
@@ -1250,19 +1249,411 @@ def drag_fields(cfg) -> List[HistoryField]:
     return out
 
 
+# chl:N and C:N ratios per algal class for the derived chl and C fields
+_R_CHL2N = ("ratio_chl2N_diatoms", "ratio_chl2N_sp", "ratio_chl2N_phaeo")
+_R_C2N = ("ratio_C2N_diatoms", "ratio_C2N_sp", "ratio_C2N_phaeo")
+
+
+def bgc_fields(cfg=None) -> List[HistoryField]:
+    """BGC group of the skeletal model with the reference's names
+    (ice_history_bgc.F90 skl section): species families carry the 3-digit
+    class suffix ("algal_N001", "dFe001", ...); "X"/"algal_X" = bulk skl
+    content (mmol/m^2, cell mean), "X_net" = column content, "ml_X" =
+    mixed-layer concentration, "fX"/"fX_ai" = ice->ocean flux, and
+    grow_net/PP_net/upNO/upNH."""
+    from ..columns.zbgc import SK_L
+    fields = [
+        _f("algalN", "mmol N/m^2", "skeletal-layer algal nitrogen",
+           lambda s, fl, g: (s.trcrn["bgc_N"] * s.aicen).sum(0)),
+        _f("nitrate", "mmol N/m^3", "skeletal-layer nitrate",
+           lambda s, fl, g: _agg(s.trcrn["bgc_Nit"], s.aicen, s.aice)),
+    ]
+    if cfg is None:
+        return fields
+    z = cfg.zbgc
+    # dissolved pools carry mmol/m^3 of the skeletal layer (x SK_L for
+    # per-area content); algae and particulates are per area already
+    per_area = {"bgc_N", "bgc_N2", "bgc_N3", "bgc_PON", "bgc_DMSPp",
+                "bgc_Fep", "bgc_Fep2"}
+
+    def content(key, scale=1.0):
+        def fn(s, fl, g):
+            t = s.trcrn.get(key)
+            if t is None:
+                return torch.zeros_like(s.aice)
+            sc = scale * (1.0 if key in per_area else SK_L)
+            return (t * sc * s.aicen).sum(0)
+        return fn
+
+    def mlval(v):
+        return lambda s, fl, g: torch.full_like(s.aice, v)
+
+    def focn(key):
+        return _nf2d(f"fbgc_{key[4:]}")
+
+    def focn_ai(key):
+        return lambda s, fl, g: focn(key)(s, fl, g) * s.aice
+
+    # (tracer key, reference display name, units base, enabled, ml value)
+    groups = [("bgc_Nit", "Nit", "mmol N", z.tr_bgc_Nit, z.nit_data),
+              ("bgc_Am", "Am", "mmol N", z.tr_bgc_Am, z.amm_data),
+              ("bgc_Sil", "Sil", "mmol Si", z.tr_bgc_Sil, z.sil_data),
+              ("bgc_DMS", "DMS", "mmol S", z.tr_bgc_DMS, z.dms_data),
+              ("bgc_DMSPd", "DMSPd", "mmol S", z.tr_bgc_DMS, z.dms_data),
+              ("bgc_DMSPp", "DMSPp", "mmol S", z.tr_bgc_DMS, None),
+              ("bgc_PON", "PON", "mmol N", z.tr_bgc_PON, None),
+              ("bgc_DON", "DON001", "mmol N", z.tr_bgc_DON, 0.0),
+              ("bgc_hum", "hum", "mmol C", z.tr_bgc_hum, z.hum_data)]
+    # iron classes take the reference's dFe/pFe names, DOC/DIC the 3-digit
+    # class suffix
+    if z.tr_bgc_Fe:
+        groups += [("bgc_Fed", "dFe001", "umol Fe", True, z.fed_data),
+                   ("bgc_Fep", "pFe001", "umol Fe", True, 0.0)]
+        if z.n_fed >= 2:
+            groups += [("bgc_Fed2", "dFe002", "umol Fe", True, z.fed_data)]
+        if z.n_fep >= 2:
+            groups += [("bgc_Fep2", "pFe002", "umol Fe", True, 0.0)]
+    if z.tr_bgc_C:
+        groups += [(f"bgc_DOC{i+1}", f"DOC{i+1:03d}", "mmol C", True,
+                    z.doc_data) for i in range(z.n_doc)]
+        groups += [(f"bgc_DIC{i+1}", f"DIC{i+1:03d}", "mmol C", True,
+                    z.dic_data) for i in range(z.n_dic)]
+    for key, name, u, on, ml in groups:
+        if not on:
+            continue
+        fields.append(_f(name, f"{u}/m^2", f"skl-layer {name} content",
+                         content(key)))
+        # the column content equals the skl content in this model
+        base = name.rstrip("0123456789")
+        suf = name[len(base):]
+        fields.append(_f(f"{base}_net{suf}", f"{u}/m^2",
+                         f"net {base} column content", content(key)))
+        if ml is not None:
+            fields.append(_f(f"ml_{base}{suf}", f"{u}/m^3",
+                             f"mixed-layer {base}", mlval(ml)))
+        fields.append(_f(f"f{base}{suf}", f"{u}/m^2/s",
+                         f"{base} flux, ice to ocean", focn(key)))
+        fields.append(_f(f"f{base}_ai{suf}", f"{u}/m^2/s",
+                         f"{base} flux, ice to ocean (x ice area)",
+                         focn_ai(key)))
+
+    # algal classes: bulk content, derived carbon and chlorophyll, net and
+    # flux families with per-class names (algal_N001, fN001, ...)
+    if z.tr_bgc_N:
+        for i in range(min(z.n_algae, 3)):
+            key = ("bgc_N", "bgc_N2", "bgc_N3")[i]
+            sfx = f"{i+1:03d}"
+            rc2n = float(getattr(z, _R_C2N[i]))
+            rchl = float(getattr(z, _R_CHL2N[i]))
+            fields += [
+                _f(f"algal_N{sfx}", "mmol N/m^2",
+                   f"skl algal N, class {i+1}", content(key)),
+                _f(f"algal_C{sfx}", "mmol C/m^2",
+                   f"skl algal C, class {i+1}", content(key, rc2n)),
+                _f(f"algal_chl{sfx}", "mg chl/m^2",
+                   f"skl algal chlorophyll, class {i+1}", content(key, rchl)),
+                _f(f"algalN_net{sfx}", "mmol/m^2",
+                   f"net algal N, class {i+1}", content(key)),
+                _f(f"algalC_net{sfx}", "mmol/m^2",
+                   f"net algal C, class {i+1}", content(key, rc2n)),
+                _f(f"chl_net{sfx}", "mg chl/m^2",
+                   f"net chlorophyll, class {i+1}", content(key, rchl)),
+                _f(f"ml_N{sfx}", "mmol N/m^3",
+                   f"mixed-layer algal N, class {i+1}", mlval(0.0)),
+                _f(f"fN{sfx}", "mmol/m^2/s",
+                   f"algal N flux to ocean, class {i+1}", focn(key)),
+                _f(f"fN_ai{sfx}", "mmol/m^2/s",
+                   f"algal N flux x ice area, class {i+1}", focn_ai(key)),
+            ]
+        if z.tr_bgc_DMS:
+            fields.append(_f("ml_DMSP", "mmol S/m^3", "mixed-layer DMSP",
+                             mlval(z.dms_data)))
+
+    fields += [
+        _f("grow_net", "1/s", "net specific growth", _nf2d("grow_net")),
+        _f("PP_net", "mg C/m^2/d", "net primary production",
+           _nf2d("PP_net")),
+        _f("upNO", "mmol N/m^2/s", "algal nitrate uptake", _nf2d("upNO")),
+        _f("upNH", "mmol N/m^2/s", "algal ammonium uptake", _nf2d("upNH")),
+    ]
+    return fields
+
+
+def _z_display(nm: str):
+    """Internal z-tracer key -> the reference's display names (profile,
+    net, frac, snow), with 3-digit class suffixes for multi-class
+    families (ice_history_bgc.F90 vname_in constructions)."""
+    fam_cls = {
+        "bgc_N": ("bgc_N", "algalN", 1), "bgc_N2": ("bgc_N", "algalN", 2),
+        "bgc_N3": ("bgc_N", "algalN", 3),
+        "bgc_Fed": ("bgc_Fed", "dFe", 1), "bgc_Fed2": ("bgc_Fed", "dFe", 2),
+        "bgc_Fep": ("bgc_Fep", "pFe", 1), "bgc_Fep2": ("bgc_Fep", "pFe", 2),
+    }
+    if nm in fam_cls:
+        pbase, nbase, i = fam_cls[nm]
+        return (f"{pbase}{i:03d}", f"{nbase}_net{i:03d}",
+                f"{nbase}_frac{i:03d}", f"{nbase}_snow{i:03d}")
+    if nm.startswith("bgc_DOC") or nm.startswith("bgc_DIC"):
+        i = int(nm[7:])
+        fam = nm[4:7]
+        return (f"bgc_{fam}{i:03d}", f"{fam}_net{i:03d}",
+                f"{fam}_frac{i:03d}", f"{fam}_snow{i:03d}")
+    if nm.startswith("zaero"):
+        i = int(nm[5:])
+        return (f"zaero{i:03d}", f"zaero_net{i:03d}", f"zaero_frac{i:03d}",
+                f"zaero_snow{i:03d}")
+    base = nm[4:]            # bgc_Nit -> Nit, bgc_hum -> hum, ...
+    return (nm, f"{base}_net", f"{base}_frac", f"{base}_snow")
+
+
+def zbgc_fields(cfg) -> List[HistoryField]:
+    """z-tracer group with the reference's names (ice_history_bgc.F90,
+    vertically resolved section): bio-grid bulk profiles ("bgc_X[NNN]" and
+    "_cat1"), column integrals "X_net", column-mean mobile fractions
+    "X_frac", snow contents "X_snow", fluxes to the ocean, derived carbon
+    and chlorophyll profiles and the chlorophyll peak, the interior-state
+    profiles (bTizn/bphizn/zfswin/iDin/ikin) and the uptake totals."""
+    from ..columns.zbgc_vertical import z_tracer_names
+
+    z = cfg.zbgc
+
+    def integ(key, scale=1.0):
+        # integral over the brine column: layer mean x hbr, x aicen
+        def fn(s, fl, g):
+            am = _mx(s.aicen, 1e-11)
+            hbr = s.trcrn["fbri"] * torch.where(s.aicen > 1e-11,
+                                                s.vicen / am, 0.0)
+            return (s.trcrn[key].mean(1) * scale * hbr * s.aicen).sum(0)
+        return fn
+
+    units = {"bgc_Fed": "umol Fe/m^2", "bgc_Fep": "umol Fe/m^2",
+             "bgc_Fed2": "umol Fe/m^2", "bgc_Fep2": "umol Fe/m^2"}
+    nb = max(cfg.domain.nblyr, 1)
+    db = (("nkbio", nb),)
+
+    def prof(key, scale=1.0):
+        # category-aggregated bulk concentration profile on the bio grid
+        def fn(s, fl, g):
+            return (s.trcrn[key] * scale * s.aicen[:, None]).sum(0) / \
+                _mx(s.aice, cst.puny)[None]
+        return fn
+
+    def prof1(key):
+        return lambda s, fl, g: s.trcrn[key][0]
+
+    def mfrac(key):
+        # brine-volume-weighted column-mean mobile fraction
+        def fn(s, fl, g):
+            mf = s.trcrn.get(key + "_mf")
+            if mf is None:
+                return torch.zeros_like(s.aice)
+            return (mf.mean(1) * s.aicen).sum(0) / _mx(s.aice, cst.puny)
+        return fn
+
+    def snow_content(key, r=1.0):
+        def fn(s, fl, g):
+            if key not in s.trcrn:
+                return torch.zeros_like(s.aice)
+            c = (s.trcrn[key] * s.aicen).sum(0)
+            return c if r == 1.0 else r * c
+        return fn
+
+    def flux_ai(key):
+        return lambda s, fl, g: _nf2d(key)(s, fl, g) * s.aice
+
+    fields = []
+    for nm in z_tracer_names(z):
+        u = units.get(nm, "mmol/m^2")
+        if nm.startswith("zaero"):
+            u = "kg/m^2"
+        pname, nname, fname, sname = _z_display(nm)
+        fields.append(_f(nname, u, f"brine-column integrated {nm}",
+                         integ(nm)))
+        fields.append(_f(fname, "1", f"column-mean mobile fraction, {nm}",
+                         mfrac(nm)))
+        fields.append(_f(sname, u, f"snow content, {nm}",
+                         snow_content(nm + "_sn")))
+        # net ice->ocean flux (the zaero family exists in the z network
+        # only)
+        uflux = u.replace("/m^2", "/m^2/s")
+        fxbase = ("fzaero" if nm.startswith("zaero")
+                  else "fN" if nm in ("bgc_N", "bgc_N2", "bgc_N3")
+                  else "f" + nname.split("_net")[0])
+        fxsuf = nname[len(nname.rstrip("0123456789")):]
+        fields.append(_f(f"{fxbase}{fxsuf}", uflux,
+                         f"{nm} flux, ice to ocean", _nf2d(f"fzbgc_{nm}")))
+        fields.append(_f(f"{fxbase}_ai{fxsuf}", uflux,
+                         f"{nm} flux x ice area", flux_ai(f"fzbgc_{nm}")))
+        # bio-grid profiles: the category aggregate and category 1
+        u3 = u.replace("/m^2", "/m^3")
+        fields.append(_f(pname, u3, f"bulk {nm}, bio grid", prof(nm),
+                         dims=db))
+        m = re.match(r"^(.*?)(\d{3})$", pname)
+        cat1 = (f"{m.group(1)}_cat1{m.group(2)}" if m else pname + "_cat1")
+        fields.append(_f(cat1, u3, f"bulk {nm}, category 1", prof1(nm),
+                         dims=db))
+
+    # derived per-class carbon and chlorophyll, and the chlorophyll peak
+    if z.tr_bgc_N:
+        for i, key in enumerate(("bgc_N", "bgc_N2", "bgc_N3")[: z.n_algae]):
+            sfx = f"{i+1:03d}"
+            rc2n = float(getattr(z, _R_C2N[i]))
+            rchl = float(getattr(z, _R_CHL2N[i]))
+            fields += [
+                _f(f"bgc_C{sfx}", "mmol C/m^3",
+                   f"bulk algal carbon, class {i+1}", prof(key, rc2n),
+                   dims=db),
+                _f(f"bgc_chl{sfx}", "mg chl/m^3",
+                   f"bulk chlorophyll, class {i+1}", prof(key, rchl),
+                   dims=db),
+                _f(f"algal_C{sfx}", "mmol C/m^2",
+                   f"column algal carbon, class {i+1}", integ(key, rc2n)),
+                _f(f"algal_chl{sfx}", "mg chl/m^2",
+                   f"column chlorophyll, class {i+1}", integ(key, rchl)),
+                _f(f"chl_frac{sfx}", "1",
+                   f"chl column-mean mobile fraction, class {i+1}",
+                   mfrac(key)),
+                _f(f"algalC_snow{sfx}", "mmol C/m^2",
+                   f"snow algal carbon, class {i+1}",
+                   snow_content(key + "_sn", rc2n)),
+                _f(f"chl_snow{sfx}", "mg chl/m^2",
+                   f"snow chlorophyll, class {i+1}",
+                   snow_content(key + "_sn", rchl)),
+            ]
+
+            def peak(k, which, r=rchl):
+                def fn(s, fl, g):
+                    # per-ice chlorophyll profile (the bgc_chl field's)
+                    p = (r * (s.trcrn[k] * s.aicen[:, None]).sum(0)
+                         / _mx(s.aice, cst.puny)[None])
+                    if which == "val":
+                        return p.amax(0)
+                    # fractional depth of the maximum (0 top, 1 bottom)
+                    idx = p.argmax(0).to(p.dtype)
+                    return (idx + 0.5) / p.shape[0]
+                return fn
+            fields += [
+                _f(f"peak_loc{sfx}", "1",
+                   f"fractional depth of chl peak, class {i+1}",
+                   peak(key, "loc")),
+                _f(f"peak_val{sfx}", "mg chl/m^3",
+                   f"chl concentration at peak, class {i+1}",
+                   peak(key, "val")),
+            ]
+
+    # interior-state profiles and uptake totals (step_zbgc diagnostics)
+    def nf3d(key):
+        def fn(s, fl, g):
+            v = fl.ncat_fluxes.get(key)
+            if v is None:
+                return s.aice.new_zeros((nb,) + tuple(s.aice.shape))
+            return v
+        return fn
+
+    fields += [
+        _f("bTizn", "C", "brine-layer temperature profile (x aice)",
+           nf3d("bTizn"), dims=db),
+        _f("bphizn", "1", "brine porosity profile (x aice)",
+           nf3d("bphizn"), dims=db),
+        _f("zfswin", "W/m^2", "PAR in the ice interior (x aice)",
+           nf3d("zfswin"), dims=db),
+        _f("iDin", "m^2/s", "interior eddy diffusivity (x aice)",
+           nf3d("iDin"), dims=db),
+        _f("ikin", "m^2", "interior permeability (x aice)",
+           nf3d("ikin"), dims=db),
+    ]
+    if not z.skl_bgc:      # the skl group registers these when both are on
+        fields += [
+            _f("upNO", "mmol N/m^2/s", "algal nitrate uptake",
+               _nf2d("upNO")),
+            _f("upNH", "mmol N/m^2/s", "algal ammonium uptake",
+               _nf2d("upNH")),
+            _f("PP_net", "mg C/m^2/d", "net primary production",
+               _nf2d("PP_net")),
+            _f("grow_net", "1/s", "net specific growth", _nf2d("grow_net")),
+        ]
+    return fields
+
+
+def hbrine_fields(ncat: int) -> List[HistoryField]:
+    """Brine group (ice_history_bgc.F90: f_fbri -> "fbrine" 3Dc, n_hbri ->
+    "hbrine" 2D)."""
+    def hbri(s, fl, g):
+        am = _mx(s.aicen, 1e-11)
+        hin = torch.where(s.aicen > 1e-11, s.vicen / am, 0.0)
+        return (s.trcrn["fbri"] * hin * s.aicen).sum(0)
+    return [
+        _f("fbri", "1", "brine height fraction of ice thickness",
+           lambda s, fl, g: _agg(s.trcrn["fbri"], s.aicen, s.aice)),
+        _f("fbrine", "1", "brine height fraction, categories",
+           lambda s, fl, g: s.trcrn["fbri"], dims=(("nc", ncat),)),
+        _f("hbrine", "m", "cell-mean brine height", hbri),
+    ]
+
+
+def aero_iso_fields(cfg) -> List[HistoryField]:
+    """Aerosol and isotope burdens (f_aero -> aerosnossl/aerosnoint/
+    aeroicessl/aeroiceint per species, f_iso -> isosno/isoice per species),
+    their deposition rates and their fluxes to the ocean."""
+    from ..columns.aero_iso import ALPHA_DEP, FAERO_DEFAULT
+
+    def burden(key, row):
+        return lambda s, fl, g: (s.trcrn[key][:, row] * s.aicen).sum(0)
+
+    def species_flux(key, sp):
+        def fn(s, fl, g):
+            v = fl.ncat_fluxes.get(key)
+            return torch.zeros_like(s.aice) if v is None else v[sp]
+        return fn
+
+    F = []
+    d = cfg.domain
+    if cfg.tracers.tr_aero and d.n_aero:
+        for sp in range(d.n_aero):
+            for li, lname in ((0, "ssl"), (1, "int")):
+                F.append(_f(f"aerosno{lname}{sp+1:03d}", "kg/m^2",
+                            f"snow aerosol {lname} layer, species {sp+1}",
+                            burden("aerosno", 2 * sp + li)))
+                F.append(_f(f"aeroice{lname}{sp+1:03d}", "kg/m^2",
+                            f"ice aerosol {lname} layer, species {sp+1}",
+                            burden("aeroice", 2 * sp + li)))
+        for sp in range(d.n_aero):
+            dflt = FAERO_DEFAULT[min(sp, len(FAERO_DEFAULT) - 1)]
+            F.append(_ff(
+                f"faero_atm{sp+1:03d}", "kg/m^2/s",
+                f"aerosol deposition rate, species {sp+1}",
+                lambda s, fl, g, fc, sp=sp, dflt=dflt: (
+                    fc.faero_atm[sp] if fc.faero_atm.shape[0] > sp
+                    else torch.full_like(s.aice, dflt))))
+            F.append(_f(f"faero_ocn{sp+1:03d}", "kg/m^2/s",
+                        f"aerosol flux to the ocean, species {sp+1}",
+                        species_flux("faero_ocn", sp)))
+    if cfg.tracers.tr_iso and d.n_iso:
+        for sp in range(d.n_iso):
+            alpha = ALPHA_DEP[min(sp, len(ALPHA_DEP) - 1)]
+            F.append(_f(f"isosno{sp+1:03d}", "kg/m^2",
+                        f"snow isotope burden, species {sp+1}",
+                        burden("isosno", sp)))
+            F.append(_f(f"isoice{sp+1:03d}", "kg/m^2",
+                        f"ice isotope burden, species {sp+1}",
+                        burden("isoice", sp)))
+            # deposition (fractionated snowfall) and ocean release
+            F.append(_ff(
+                f"fiso_atm{sp+1:03d}", "kg/m^2/s",
+                f"isotope deposition rate, species {sp+1}",
+                lambda s, fl, g, fc, sp=sp, alpha=alpha:
+                (fc.fiso_atm[sp] if fc.fiso_atm.shape[0] > sp
+                 else alpha * fc.fsnow)))
+            F.append(_f(f"fiso_ocn{sp+1:03d}", "kg/m^2/s",
+                        f"isotope flux to the ocean, species {sp+1}",
+                        species_flux("fiso_ocn", sp)))
+    return F
+
+
 def build_fields(cfg) -> List[HistoryField]:
     """Full conditional registry (init_hist honoring the tracer flags —
     reference icefields_*_nml groups), in the JAX package's order."""
-    t, d = cfg.tracers, cfg.domain
-    waiting = [name for name, on in (
-        ("bgc", cfg.zbgc.skl_bgc), ("zbgc", cfg.zbgc.z_tracers),
-        ("hbrine", t.tr_brine),
-        ("aero_iso", (t.tr_aero and d.n_aero) or (t.tr_iso and d.n_iso)))
-        if on]
-    if waiting:
-        raise NotImplementedError(
-            f"history groups {', '.join(waiting)} are not ported yet "
-            "(ROADMAP A6: column options)")
+    t = cfg.tracers
     fields = default_fields() + dyn_fields() + forcing_fields() \
         + flux_extra_fields() + category_fields(cfg.domain.ncat) \
         + grid_fields() + grid_extra_fields() + vector_diag_fields() \
@@ -1281,6 +1672,13 @@ def build_fields(cfg) -> List[HistoryField]:
         fields += fsd_fields(cfg) + fsd_extra_fields(cfg)
     if t.tr_lvl:
         fields += mechred_fields() + mechred_extra_fields(cfg)
+    fields += aero_iso_fields(cfg)
+    if cfg.zbgc.skl_bgc:
+        fields += bgc_fields(cfg)
+    if cfg.zbgc.z_tracers:
+        fields += zbgc_fields(cfg)
+    if t.tr_brine:
+        fields += hbrine_fields(cfg.domain.ncat)
     if cfg.setup.hist_cmip:
         fields += cmip_fields() + cmip_si_fields(cfg)
     # dedupe by name, first registration wins

@@ -180,3 +180,33 @@ def count_host_reads(fn) -> int:
         for nm, f in saved.items():
             setattr(torch.Tensor, nm, f)
     return count[0]
+
+
+def step_counts(opts: str = "", nx: int = 48, ny: int = 40,
+                device: str = "cpu") -> tuple:
+    """(PyTorch operations, host reads) of one `Model.step` of
+    `config.gx1pop_step(nx, ny)` with the comma-separated option sets
+    `opts` of the CLI's table (or `--set`-style 'key=value' items), after
+    one warm step."""
+    from .cli.main import OPTION_SETS, _parse_sets
+    from .config import gx1pop_step
+    from .model.driver import Model
+    cfg = gx1pop_step(nx, ny)
+    for opt in filter(None, opts.split(",")):
+        over = _parse_sets([opt]) if "=" in opt else OPTION_SETS[opt]
+        cfg = cfg.with_overrides(**over)
+    m = Model(cfg, device=device)
+    m.step()
+    return count_ops(m.step), count_host_reads(m.step)
+
+
+if __name__ == "__main__":
+    # python -m cice_tpu_torch.measure [opts ...]: operations and host
+    # reads per coupled step of gx1pop_step at 48x40 on the CPU, for each
+    # argument (an option set, a comma list of them, or key=value)
+    import sys
+    torch.set_num_threads(2)
+    for opts in [""] + sys.argv[1:]:
+        ops, reads = step_counts(opts)
+        print(f"gx1pop_step(48, 40){' + ' + opts if opts else ''}: {ops} "
+              f"PyTorch operations, {reads} host reads per step")

@@ -1,8 +1,9 @@
 """Runtime diagnostics: hemispheric totals, conservation, stability checks
 (PyTorch port of cice_tpu/model/diagnostics.py; reference
 ice_diagnostics.F90 `runtime_diags`, `check_umax`, the arbud/icebud budget
-tables). All results are 0-d tensors on the state's device. `bgc_diags`,
-`hbrine_diags`, `print_points_state` and `debug_ice` wait for ROADMAP A6/A7.
+tables, and ice_diagnostics_bgc.F90 `bgc_diags`, `hbrine_diags`). All
+results are 0-d tensors on the state's device. `print_points_state` and
+`debug_ice` wait for ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -45,6 +46,45 @@ def runtime_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
                             0.0).max(),
         "sst_mean": torch.sum(state.sst * tarea) /
         torch.clamp(torch.sum(tarea), min=1.0),
+    }
+
+
+def bgc_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
+    """BGC tracer totals and means: for each `bgc_*` tracer the
+    area-integrated cell content (`<name>_tot`) and its mean over the
+    ice-covered area (`<name>_mean`). A z tracer (ncat, nblyr, ny, nx)
+    counts its mean over the bio layers: the JAX package's function
+    multiplies it by aicen directly, which fails unless ncat == nblyr."""
+    tarea = grid.tarea * grid.hm
+    d: Dict[str, torch.Tensor] = {}
+    aice_w = torch.clamp(torch.sum(state.aice * tarea), min=cst.puny)
+    for name, trc in state.trcrn.items():
+        if not name.startswith("bgc_"):
+            continue
+        if trc.dim() == 4:
+            trc = trc.mean(1)
+        cell = torch.sum(trc * state.aicen, dim=0)      # cell-mean content
+        d[f"{name}_tot"] = torch.sum(cell * tarea)
+        d[f"{name}_mean"] = d[f"{name}_tot"] / aice_w
+    return d
+
+
+def hbrine_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
+    """Brine-height diagnostics: the mean fbri and the mean brine height
+    over the ice-covered area ({} without the brine tracer)."""
+    if "fbri" not in state.trcrn:
+        return {}
+    tarea = grid.tarea * grid.hm
+    fbri = state.trcrn["fbri"]
+    hin = torch.where(state.aicen > cst.puny,
+                      state.vicen / torch.clamp(state.aicen, min=cst.puny),
+                      0.0)
+    hbri = torch.sum(fbri * hin * state.aicen, dim=0)
+    aice_w = torch.clamp(torch.sum(state.aice * tarea), min=cst.puny)
+    return {
+        "fbri_mean": torch.sum(torch.sum(fbri * state.aicen, dim=0) * tarea)
+        / aice_w,
+        "hbri_mean": torch.sum(hbri * tarea) / aice_w,
     }
 
 

@@ -127,6 +127,13 @@ def set_state_var(cfg, grid: Grid, state: State, Tf) -> State:
                    ("bgc_DOC3", cfg.zbgc.doc_data),
                    ("bgc_DIC1", cfg.zbgc.dic_data)):
         _init_bgc(nm, v0)
+    # z-tracer companions: the mobile fraction starts fully mobile;
+    # aerosols start clean
+    for nm in list(trcrn):
+        if nm.endswith("_mf"):
+            _init_bgc(nm, 1.0)
+        elif nm.startswith("zaero"):
+            _init_bgc(nm, 0.0)
     if "fbri" in trcrn:
         trcrn["fbri"] = torch.where(aicen > 0, 1.0, 0.0).to(dtp)
     if "rsnw" in trcrn:

@@ -111,8 +111,17 @@ def tracer_registry(cfg) -> tuple[TracerSpec, ...]:
         if z.tr_bgc_hum:
             specs.append(TracerSpec("bgc_hum", DEP_AICE))
     if getattr(cfg, "zbgc", None) is not None and cfg.zbgc.z_tracers:
-        raise NotImplementedError(
-            "zbgc z_tracers are not ported yet (ROADMAP A6: column options)")
+        # z tracers: bulk concentrations on the nblyr bio grid, conserved
+        # per unit brine volume vice*fbri (trcr_depend = 2 + nt_fbri), each
+        # with a mobile-fraction companion and a snow reservoir (content
+        # per unit category area)
+        from ..columns.zbgc_vertical import z_tracer_names
+        nb = max(d.nblyr, 1)
+        for nm in z_tracer_names(cfg.zbgc):
+            specs.append(TracerSpec(nm, DEP_VICE, nb, parent="fbri"))
+            specs.append(TracerSpec(nm + "_mf", DEP_VICE, nb, parent="fbri",
+                                    hi=1.0))
+            specs.append(TracerSpec(nm + "_sn", DEP_AICE))
     return tuple(specs)
 
 

@@ -6,12 +6,15 @@ port of cice_tpu/model/step.py; reference ice_step_mod.F90 `step_therm1`:224,
 Each phase is a dense tensor transformation over the global (ncat, ny, nx)
 state. `model_step` is one full step; `step_dyn_transport` is its ndtd
 dynamics/transport/ridging supercycle. Options whose modules are not ported
-raise NotImplementedError naming their ROADMAP item.
+raise NotImplementedError naming their ROADMAP item (only the multi-GPU
+EVP now).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -20,17 +23,21 @@ import torch
 from .. import constants as cst
 from ..columns import itd as itd_mod
 from ..columns import mushy as mush
+from ..columns.aero_iso import FAERO_DEFAULT, step_aerosols, step_isotopes
 from ..columns.atmo import atmo_boundary_const, atmo_boundary_layer
 from ..columns.ocean import ocean_mixed_layer
 from ..columns.dedd import shortwave_dEdd
 from ..columns.formdrag import drag_from_state
 from ..columns.fsd import step_dyn_wave, step_fsd_thermo
+from ..columns.hbrine import update_hbrine
 from ..columns.ponds import (POND_DIAGS, pond_exposure, pond_reservoir_mass,
                              step_ponds)
 from ..columns.ridging import ice_strength, ridge_ice
 from ..columns.shortwave import shortwave_ccsm3
 from ..columns.snow import step_snow
 from ..columns.thermo_itd import step_therm2
+from ..columns.zbgc import step_bgc_skl_net
+from ..columns.zbgc_vertical import step_zbgc, z_tracer_names
 from ..columns.thermo_vertical import (adjust_enthalpy, bl99_salinity,
                                        melting_temps, safe_mix,
                                        temp_from_enthalpy_snow,
@@ -80,6 +87,12 @@ def check_ported(cfg) -> None:
     module is not ported, naming the ROADMAP item that will port it, and
     ValueError for the combinations the port refuses.
 
+    Two configurations on which the JAX package fails are refused: z
+    tracers without the brine tracer (their transport parent `fbri` is not
+    registered; the JAX package fails in its flat tracer table) and a
+    non-numeric mixed-layer concentration such as 'clim' (the JAX package
+    has no climatology reader and fails converting the string).
+
     kdyn 2 (EAP) and 3 (VP) are B-grid solvers: on a C or CD grid the
     JAX package runs them on the corner velocities while its C-grid
     transport reads the face velocities uvelE/vvelN, which nothing then
@@ -96,23 +109,23 @@ def check_ported(cfg) -> None:
     if d.advection not in ADVECTIONS:
         raise ValueError(f"dynamics.advection={d.advection!r}: expected one "
                          f"of {ADVECTIONS}")
-    A6 = "ROADMAP A6: column options"
-    dedd = cfg.shortwave.shortwave.startswith("dEdd")
-    checks = (
-        (cfg.forcing.highfreq, "high-frequency coupling (highfreq)", A6),
-        (t.tr_aero, "aerosols (tr_aero)", A6),
-        (t.tr_iso, "isotopes (tr_iso)", A6),
-        (t.tr_brine, "the brine height tracer (tr_brine)", A6),
-        (cfg.zbgc.skl_bgc or cfg.zbgc.z_tracers,
-         "skeletal-layer and vertical biogeochemistry", A6),
-        (dedd and cfg.zbgc.dEdd_algae,
-         "ice-algal shading in delta-Eddington (zbgc.dEdd_algae)", A6),
-        (d.evp_algorithm == "wide_halo", "evp_algorithm='wide_halo'",
-         "ROADMAP A8: multi-GPU evp_wide over torch.distributed"),
-    )
-    for on, what, item in checks:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet ({item})")
+    z = cfg.zbgc
+    if z.z_tracers and not t.tr_brine:
+        raise ValueError(
+            "zbgc.z_tracers=True needs tracers.tr_brine=True: the z tracers "
+            "ride on the brine height tracer fbri, which only tr_brine "
+            "registers")
+    if z.skl_bgc or z.z_tracers:
+        for f in dataclasses.fields(z):
+            v = getattr(z, f.name)
+            if f.name.endswith("_data") and not isinstance(v, (int, float)):
+                raise ValueError(
+                    f"zbgc.{f.name}={v!r}: the mixed-layer concentrations "
+                    "must be numbers; no BGC climatology reader exists")
+    if d.evp_algorithm == "wide_halo":
+        raise NotImplementedError(
+            "evp_algorithm='wide_halo' is not ported yet (ROADMAP A8: "
+            "multi-GPU evp_wide over torch.distributed)")
 
 
 @dataclass(frozen=True)
@@ -133,6 +146,81 @@ class ModelStatic:
 # ---------------------------------------------------------------------------
 # step_therm1: per-category vertical thermodynamics (dense over categories)
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=32)
+def _const(v: float, dtype, device) -> torch.Tensor:
+    """A 0-d tensor of v in `dtype`, uploaded once per (v, dtype,
+    device)."""
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def _therm1_bgc(cfg, trcrn: dict, fc: Forcing, dt: float, *, an, vicen,
+                vsnon, th, sw, aice):
+    """The tracer physics of step_therm1 after the ponds: aerosols and
+    isotopes (icepack_aerosol / icepack_isotope), the brine height
+    (update_hbrine) and, on the brine column, the z tracers (z_tracers /
+    solve_zbgc). Returns (trcrn, the planes for FluxOut.ncat_fluxes)."""
+    t, z = cfg.tracers, cfg.zbgc
+    planes = {}
+    if t.tr_aero and "aerosno" in trcrn:
+        # the coupler's per-species deposition where it has one per
+        # species, else the standalone defaults
+        fa = fc.faero_atm if fc.faero_atm.shape[0] == cfg.domain.n_aero \
+            else None
+        trcrn["aerosno"], trcrn["aeroice"], faero_ocn = step_aerosols(
+            cfg, dt, aicen=an, vicen=vicen, vsnon=vsnon,
+            aerosno=trcrn["aerosno"], aeroice=trcrn["aeroice"],
+            melts=th.melts, meltt=th.meltt, snoice=th.snoice,
+            fsnow=fc.fsnow, faero_atm=fa)
+        planes["faero_ocn"] = faero_ocn
+    if t.tr_iso and "isosno" in trcrn:
+        fi = fc.fiso_atm if fc.fiso_atm.shape[0] == cfg.domain.n_iso \
+            else None
+        trcrn["isosno"], trcrn["isoice"], fiso_ocn = step_isotopes(
+            cfg, dt, aicen=an, vsnon=vsnon, isosno=trcrn["isosno"],
+            isoice=trcrn["isoice"], fsnow=fc.fsnow, melts=th.melts,
+            snoice=th.snoice, fiso_atm=fi)
+        planes["fiso_ocn"] = fiso_ocn
+    if not (t.tr_brine and "fbri" in trcrn):
+        return trcrn, planes
+    hb = update_hbrine(dt, aicen=an, vicen=vicen, vsnon=vsnon,
+                       fbri=trcrn["fbri"], qice=trcrn["qice"],
+                       sice=trcrn["sice"], meltb=th.meltb, meltt=th.meltt,
+                       congel=th.congel)
+    trcrn["fbri"] = hb.fbri
+    znames = [n for n in z_tracer_names(z) if n in trcrn] \
+        if z.z_tracers else []
+    if not znames:
+        return trcrn, planes
+    zdep = None
+    if z.tr_zaero and z.n_zaero > 0:
+        # standalone deposition defaults (faero_default): BC1, BC2, then
+        # the dust species
+        zdep = {f"zaero{i+1}": _const(
+                    FAERO_DEFAULT[min(i, len(FAERO_DEFAULT) - 1)],
+                    aice.dtype, aice.device)
+                for i in range(z.n_zaero)}
+    zout = step_zbgc(
+        z, dt, aicen=an, vicen=vicen, vsnon=vsnon, fbri=trcrn["fbri"],
+        qice=trcrn["qice"], sice=trcrn["sice"],
+        trc={n: trcrn[n] for n in znames},
+        frac={n: trcrn[n + "_mf"] for n in znames}, darcy_V=hb.darcy_V,
+        fswthru=sw.fswint + sw.fswthru, Tbot=fc.Tf, meltt=th.meltt,
+        meltb=th.meltb, congel=th.congel, frazil=torch.zeros_like(aice),
+        zaero_dep=zdep,
+        snow={n: trcrn[n + "_sn"] for n in znames if n + "_sn" in trcrn},
+        melts=th.melts)
+    for n in znames:
+        trcrn[n] = zout.trc[n]
+        trcrn[n + "_mf"] = zout.frac[n]
+        if n in zout.snow:
+            trcrn[n + "_sn"] = zout.snow[n]
+    # interior-state and uptake diagnostics, and the net ice->ocean flux
+    # of each z tracer (history fzaero/fN/fNit... families)
+    planes.update(zout.diags)
+    planes.update({f"fzbgc_{n}": v for n, v in zout.flux_ocn.items()})
+    return trcrn, planes
+
 
 def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                 dt: float):
@@ -182,9 +270,25 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     if cfg.shortwave.shortwave.startswith("dEdd"):
         apeff_rad = pond_exposure(cfg, aicen=an, vsnon=vsn, trcrn=trcrn)
         hpnd_rad = trcrn.get("hpnd", torch.zeros_like(an))
+        aero_snow = None
+        if cfg.tracers.tr_aero and "aerosno" in trcrn:
+            # per-species snow loadings (SSL + interior) darken the top
+            # snow layer
+            asn = trcrn["aerosno"]
+            aero_snow = [asn[:, 2 * s] + asn[:, 2 * s + 1]
+                         for s in range(cfg.domain.n_aero)]
+        tau_alg = None
+        if cfg.zbgc.dEdd_algae and "bgc_N" in trcrn:
+            # ice-algal chlorophyll shades the bottom ice layer (chl = N *
+            # ratio_chl2N, tau = kalg * chl)
+            chla = trcrn["bgc_N"] * cfg.zbgc.ratio_chl2N_diatoms
+            tau_alg = cfg.shortwave.kalg * torch.clamp(chla, min=0.0)
         sw = shortwave_dEdd(Tsf, hin, hsn, hpnd_rad, apeff_rad,
                             fc.swvdr, fc.swvdf, fc.swidr, fc.swidf,
-                            fc.coszen, cfg.shortwave, nilyr, nslyr)
+                            fc.coszen, cfg.shortwave, nilyr, nslyr,
+                            aero_snow=aero_snow,
+                            modal_aero=cfg.shortwave.modal_aero,
+                            tau_alg=tau_alg)
     else:
         sw = shortwave_ccsm3(Tsf, hin, hsn, fc.swvdr, fc.swvdf, fc.swidr,
                              fc.swidf, cfg.shortwave, nilyr)
@@ -197,7 +301,14 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         Cdn = None
         if cfg.forcing.formdrag:
             Cdn = drag_from_state(state, cfg).Cdn_atm
-        co = atmo_boundary_layer(Tsf, fc.potT, fc.uatm, fc.vatm, fc.wind,
+        ua, va, wnd = fc.uatm, fc.vatm, fc.wind
+        if cfg.forcing.highfreq:
+            # high-frequency coupling: the boundary layer sees the wind
+            # relative to the moving ice
+            ua = ua - grid_average_X2Y("S", state.uvel, "U", "T", grid)
+            va = va - grid_average_X2Y("S", state.vvel, "U", "T", grid)
+            wnd = torch.sqrt(ua * ua + va * va)
+        co = atmo_boundary_layer(Tsf, fc.potT, ua, va, wnd,
                                  fc.zlvl, fc.Qa, fc.rhoa,
                                  natmiter=cfg.forcing.natmiter, Cdn_atm=Cdn,
                                  atmiter_conv=cfg.forcing.atmiter_conv)
@@ -305,6 +416,11 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         pond_flush = torch.zeros_like(an)
         pond_diag = {k: torch.zeros_like(an) for k in POND_DIAGS}
 
+    # aerosol and isotope tracers, the brine height and the z tracers
+    trcrn, bgc_fluxes = _therm1_bgc(cfg, trcrn, fc, dt, an=an,
+                                    vicen=vicen_out, vsnon=vsnon_out, th=th,
+                                    sw=sw, aice=aice)
+
     # advanced snow physics (icepack_step_snow; it rides with therm1, where
     # the per-category melt and snow temperature are in hand)
     fsloss_n = None
@@ -379,6 +495,10 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         nsw / torch.clamp(agg["fswabs"], min=cst.puny), 1.0)
     agg["ncat_fluxes"]["fsloss"] = (zero2 if fsloss_n is None
                                     else torch.sum(fsloss_n, dim=0))
+    # the z network's interior diagnostics and the fluxes to the ocean of
+    # the z tracers, aerosols (coupler Fioi_bcpho/bcphi/flxdst) and
+    # isotopes
+    agg["ncat_fluxes"].update(bgc_fluxes)
     for k, v in pond_diag.items():
         agg[k] = ws(v)
     # 2m/10m reference diagnostics: ice-area-weighted over categories with
@@ -685,6 +805,39 @@ def _step_fsd(cfg, state: State, fc: Forcing, aicen_pre, t2, dt: float):
     return state.replace(trcrn=trc), tend
 
 
+def _step_bgc_skl(cfg, state: State, fc: Forcing, agg: dict, dt: float):
+    """The skeletal-layer network after step_therm2 (reference
+    biogeochemistry phase, ice_step_mod.F90:1634), driven by the
+    ice-area means of therm1's bottom fluxes. Adds the fluxes to the ocean
+    (fbgc_*), grow_net, upNO, upNH and PP_net to agg['ncat_fluxes'] and
+    returns the state."""
+    trc = dict(state.trcrn)
+    bgc_keys = [k for k in trc if k.startswith("bgc_")]
+    aice_safe = torch.clamp(state.aice, min=cst.puny)
+    z = cfg.zbgc
+    ocean = {"bgc_Nit": z.nit_data, "bgc_Am": z.amm_data,
+             "bgc_Sil": z.sil_data, "bgc_DMSPd": z.dms_data,
+             "bgc_DMS": z.dms_data, "bgc_DON": 0.0,
+             "bgc_hum": z.hum_data,
+             "bgc_Fed": z.fed_data, "bgc_Fed2": z.fed_data,
+             **{f"bgc_DOC{i+1}": z.doc_data for i in range(z.n_doc)},
+             **{f"bgc_DIC{i+1}": z.dic_data for i in range(z.n_dic)}}
+    bout = step_bgc_skl_net(
+        z, dt, aicen=state.aicen, trc={k: trc[k] for k in bgc_keys},
+        fswthru=(agg["fswthru"] / aice_safe)[None],
+        Tbot=fc.Tf[None], meltb=(agg["meltb"] / aice_safe)[None],
+        congel=(agg["congel"] / aice_safe)[None], ocean=ocean)
+    trc.update(bout.trc)
+    nf = agg["ncat_fluxes"]
+    nf.update({f"fbgc_{k[4:]}": v for k, v in bout.flux_bgc_ocn.items()})
+    nf["grow_net"] = torch.sum(bout.grow_net * state.aicen, dim=0) / \
+        aice_safe
+    for nm, v in (("upNO", bout.upNO), ("upNH", bout.upNH),
+                  ("PP_net", bout.PP_net)):
+        nf[nm] = torch.sum(v * state.aicen, dim=0)
+    return state.replace(trcrn=trc)
+
+
 def _mean_age(st: State):
     if "iage" not in st.trcrn:
         return torch.zeros_like(st.aice)
@@ -696,8 +849,8 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                dt: float, timer=None):
     """One full thermo+dyn timestep. Returns (state, FluxOut). `timer`, if
     given, is called with a phase name ('therm1', 'therm2', 'fsd' under
-    tr_fsd, 'dyn', 'transport', 'ridge', 'ocean') and returns a context
-    manager that the phase runs in."""
+    tr_fsd, 'bgc' under skl_bgc, 'dyn', 'transport', 'ridge', 'ocean') and
+    returns a context manager that the phase runs in."""
     cfg = ms.cfg
     registry = ms.registry
     hin_max = ms.hin_max
@@ -740,6 +893,11 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     if cfg.tracers.tr_fsd and "fsd" in state.trcrn:
         with _phase(timer, "fsd"):
             state, fsd_tend = _step_fsd(cfg, state, fc, aicen_pre, t2, dt)
+
+    # skeletal-layer biogeochemistry
+    if cfg.zbgc.skl_bgc and "bgc_N" in state.trcrn:
+        with _phase(timer, "bgc"):
+            state = _step_bgc_skl(cfg, state, fc, agg, dt)
 
     # pond reservoir change over the thermo phases: positive = water
     # retained on the ice, deducted from the coupler fresh flux. Rain over

@@ -15,3 +15,11 @@ def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
         else torch.clamp(x, min=lo)
     return torch.minimum(x, hi) if isinstance(hi, torch.Tensor) \
         else torch.clamp(x, max=hi)
+
+
+def rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """num / den for a Python scalar `num`, correctly rounded in den's
+    dtype as JAX's `num / den` is (PyTorch's `num / den` computes
+    `den.reciprocal() * num`, which differs in the last bit). The scalar
+    rides as a 0-d CPU tensor: no upload."""
+    return torch.div(torch.tensor(num, dtype=torch.float64), den)

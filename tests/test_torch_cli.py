@@ -120,11 +120,39 @@ def test_dynamics_and_transport_option_sets_run_through_the_cli(opts,
 
 
 def test_unported_option_sets_raise_naming_the_roadmap():
+    """The multi-GPU EVP (A8) and the background writer (A7) raise naming
+    their ROADMAP items; `modal` (aerosols with modal optics in dEdd),
+    which raised until the biogeochemistry was ported, builds a Model."""
     from cice_tpu_torch.model.driver import Model
-    for opts, item in (("modal", "ROADMAP A6"), ("evpwide", "ROADMAP A8"),
+    for opts, item in (("evpwide", "ROADMAP A8"),
                        ("gridc,evpwide", "ROADMAP A8"),
                        ("ioasync", "ROADMAP A7")):
         cfg = tcli._default_test_cfg(_args(opts, type="smoke"),
                                      tcli.build_config(_args(opts)))
         with pytest.raises(NotImplementedError, match=item):
             Model(cfg, device="cpu")
+    cfg = tcli._default_test_cfg(_args("modal", type="smoke"),
+                                 tcli.build_config(_args("modal")))
+    m = Model(cfg, device="cpu")
+    assert {"aerosno", "aeroice"} <= set(m.state.trcrn)
+    assert m.cfg.shortwave.modal_aero
+
+
+@pytest.mark.parametrize("opts", ["modal", "bgcskl", "bgcz", "zaero",
+                                  "isotope", "aerosol", "alt03", "alt04"])
+def test_biogeochemistry_option_sets_run_through_the_cli(opts, capsys):
+    """Each biogeochemical option set of the JAX package's table steps on
+    the CPU through `cli run` (box2001 at 12x10)."""
+    rc = tcli.main(["run", "--device", "cpu", "--opts", f"box2001,{opts}",
+                    "--steps", "2", "--set", "grid.nx_global=12",
+                    "--set", "grid.ny_global=10",
+                    "--set", "dynamics.ndte=10"])
+    assert rc == 0, capsys.readouterr().out
+
+
+def test_cli_smoke_test_of_bgcz(capsys):
+    rc = tcli.main(["test", "--type", "smoke", "--opts", "bgcz",
+                    "--device", "cpu", "--set", "grid.nx_global=12",
+                    "--set", "grid.ny_global=10"])
+    assert rc == 0, capsys.readouterr().out
+    assert "PASS test_smoke" in capsys.readouterr().out

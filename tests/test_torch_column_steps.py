@@ -29,7 +29,8 @@ Also here: the history groups of the options (registration in the JAX
 package's order; the accumulated stream and, for mushy,dedd, the cdf1
 file), restarts that carry the new tracers across the packages in npz,
 cdf1 and hdf5, the CLI smoke test of mushy,dedd, and check_ported's
-refusals of the biogeochemistry.
+acceptance of the biogeochemical options (the z tracers need the brine
+tracer; 'clim' concentrations are refused).
 
 The box2001 forcing of gx1pop_step has no shortwave: these steps hold
 delta-Eddington's albedos, and tests/test_torch_dedd.py holds its absorbed
@@ -40,6 +41,7 @@ The slow tier adds pondsealvl, saltflux, alt05 and alt06 in f64, and the
 f32 runs of both sets (rtol 2e-3, test_torch_step.py's f32 bar).
 """
 
+import argparse
 import dataclasses
 import os
 
@@ -308,9 +310,27 @@ def test_column_option_sets_run_through_the_cli(opts, capsys):
     ids=["aero", "iso", "brine", "skl_bgc", "z_tracers", "highfreq",
          "dEdd_algae"])
 def test_check_ported_refuses_the_biogeochemistry(over):
+    """(Kept name: check_ported refused these options until the
+    biogeochemistry was ported.) It accepts each of them now; z tracers
+    without the brine tracer are refused with a ValueError naming both
+    flags (the JAX package fails there: its z tracers' transport parent
+    fbri is not registered), and accepted with it."""
     cfg = tconfig.Config().with_overrides(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        check_ported(cfg)
+    if "zbgc.z_tracers" in over:
+        with pytest.raises(ValueError, match="z_tracers.*tr_brine"):
+            check_ported(cfg)
+        cfg = cfg.with_overrides(**{"tracers.tr_brine": True})
+    check_ported(cfg)
+
+
+@pytest.mark.parametrize("opts", ["bgcsklclim", "bgczclim"])
+def test_bgc_climatology_option_sets_are_refused(opts):
+    """'clim' mixed-layer nitrate and silicate: no BGC climatology reader
+    exists (the JAX package fails converting the string); Model refuses
+    the configuration before it builds any state."""
+    cfg = tcli.build_config(argparse.Namespace(opts=opts, set=None))
+    with pytest.raises(ValueError, match="nit_data.*climatology"):
+        tdriver.Model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("over", [

@@ -100,14 +100,50 @@ def test_dEdd_with_several_snow_layers_matches_jax():
     _close_tree(got, ref, "dEdd nilyr=4 nslyr=3", RTOL["float64"])
 
 
+def _aerosols_and_algae_against_jax(dtype, modal):
+    """Snow aerosols (three species, SSL + interior loadings; modal_aero
+    enhances BC absorption) darken the top snow layer on every band, and
+    ice-algal chlorophyll shades the bottom ice layer in band 0 only."""
+    rng = np.random.default_rng(52)
+    a = _inputs(rng, dtype)
+    names = ("Tsf", "hi", "hs", "hpnd", "apeff", "swvdr", "swvdf", "swidr",
+             "swidf", "coszen")
+    shp = (NCAT, NY, NX)
+    aero = [(s * 1e-5 * rng.random(shp)).astype(dtype)
+            for s in (1.0, 0.3, 50.0)]
+    aero[0][0] = -1e-7                     # a negative loading clamps at 0
+    tau_alg = (0.6 * rng.random(shp) - 0.1).astype(dtype)
+    with jax.disable_jit():
+        ref = jdedd.shortwave_dEdd(
+            *[jnp.asarray(a[n]) for n in names], JConfig().shortwave, NILYR,
+            2, aero_snow=[jnp.asarray(x) for x in aero], modal_aero=modal,
+            tau_alg=jnp.asarray(tau_alg))
+        clean = jdedd.shortwave_dEdd(*[jnp.asarray(a[n]) for n in names],
+                                     JConfig().shortwave, NILYR, 2)
+    got = tdedd.shortwave_dEdd(
+        *[torch.as_tensor(a[n]) for n in names], TConfig().shortwave, NILYR,
+        2, aero_snow=[torch.as_tensor(x) for x in aero], modal_aero=modal,
+        tau_alg=torch.as_tensor(tau_alg))
+    _close_tree(got, ref, f"dEdd aerosols + algae {dtype} modal={modal}",
+                RTOL[dtype])
+    # the terms act: darker snow, less light through the ice
+    assert float(np.asarray(ref.alvdr).mean()) < \
+        float(np.asarray(clean.alvdr).mean())
+    assert float(np.asarray(ref.fswthru).sum()) < \
+        float(np.asarray(clean.fswthru).sum())
+
+
 def test_aerosols_and_algae_in_dEdd_raise_naming_the_roadmap():
-    a = _inputs(np.random.default_rng(52), "float64")
-    args = [torch.as_tensor(a[n]) for n in (
-        "Tsf", "hi", "hs", "hpnd", "apeff", "swvdr", "swvdf", "swidr",
-        "swidf", "coszen")]
-    for kw in ({"aero_snow": [args[0]]}, {"tau_alg": args[0]}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            tdedd.shortwave_dEdd(*args, TConfig().shortwave, NILYR, **kw)
+    """(Kept name: the terms raised until they were ported.) The aerosol
+    and algae terms of dEdd match the JAX package in f64, bulk and modal
+    aerosol optics."""
+    for modal in (False, True):
+        _aerosols_and_algae_against_jax("float64", modal)
+
+
+@pytest.mark.parametrize("modal", [False, True], ids=["bulk", "modal"])
+def test_aerosols_and_algae_in_dEdd_match_jax_f32(modal):
+    _aerosols_and_algae_against_jax("float32", modal)
 
 
 @pytest.mark.parametrize("scheme", ["lvl", "topo", "sealvl"])

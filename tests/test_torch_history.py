@@ -17,8 +17,8 @@ history_fields.py) against cice_tpu/io/history.py.
   of the reference that misnames every field after the first multi-row
   one): the port's npz is held against the JAX stream's rows.
 - Stream membership (hist_field_freq) and snapshot rows, the restart
-  payload round trip, and the A6 raises for the groups not ported yet
-  (the biogeochemistry).
+  payload round trip, and the biogeochemistry's groups (bgc, zbgc,
+  hbrine, aerosols, isotopes) against the JAX package's registration.
 
 The JAX side runs remap_kernel='xla' (its fused kernels are f32-only); on
 CPU tensors every port wrapper reaches its plain version.
@@ -410,7 +410,13 @@ UNPORTED = {
 
 @pytest.mark.parametrize("group", list(UNPORTED))
 def test_unported_groups_raise_naming_roadmap(runs, group):
-    """History groups whose physics waits raise, never write zeros."""
-    tcfg, _ = _cfgs("/nonexistent", **UNPORTED[group])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        thist.History(tcfg, runs["tm"].grid)
+    """(Kept name: these groups raised until the biogeochemistry was
+    ported.) Each group's History builds, with the JAX package's field
+    names, units, dimensions and rows in its order."""
+    tcfg, jcfg = _cfgs("/nonexistent", **UNPORTED[group])
+    h = thist.History(tcfg, runs["tm"].grid)
+    got = _registry(h.fields, tfields.nrows)
+    assert got == _registry(jhist.build_fields(jcfg), jhist._nrows)
+    names = {f.name for f in h.fields}
+    assert {"bgc": "algal_N001", "zbgc": "bgc_N001", "hbrine": "hbrine",
+            "aero": "aerosnossl001", "iso": "isosno001"}[group] in names

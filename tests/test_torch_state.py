@@ -56,9 +56,21 @@ def test_default_table_has_25_tracers():
 
 
 def test_z_tracers_not_ported():
-    cfg = tconfig.Config().with_overrides(**{"zbgc.z_tracers": True})
-    with pytest.raises(NotImplementedError, match="column options"):
-        tstate.tracer_registry(cfg)
+    """(Kept name: the z-tracer registry raised until it was ported.) The
+    bgcz registry and flat table equal the JAX package's: 266 entries, the
+    z tracers and their mobile fractions of type 3 on vice -> fbri."""
+    over = {"zbgc.z_tracers": True, "zbgc.solve_zbgc": True,
+            "tracers.tr_brine": True, "domain.nblyr": 7,
+            "zbgc.tr_bgc_Am": True, "zbgc.tr_bgc_Sil": True,
+            "zbgc.tr_bgc_DMS": True, "zbgc.tr_bgc_PON": True,
+            "zbgc.tr_bgc_DON": True, "zbgc.tr_bgc_Fe": True,
+            "zbgc.tr_bgc_C": True, "zbgc.n_doc": 2, "zbgc.n_dic": 1,
+            "zbgc.n_algae": 3}
+    test_registry_and_flat_table_match_jax(over)
+    tab = trx.build_flat_table(tstate.tracer_registry(
+        tconfig.Config().with_overrides(**over)))
+    assert len(tab) == 266
+    assert [f.ttype for f in tab].count(3) == 226
 
 
 def _jax_state(cfg, grid, rng):

@@ -67,6 +67,10 @@ FLOORS = {
     "dvidtt": (0.0, 1e-9), "dvsdtt": (0.0, 1e-9), "dvidtd": (0.0, 1e-9),
     "dvsdtd": (0.0, 1e-9), "daidtd": (0.0, 1e-9), "dagedtt": (0.0, 1e-3),
     "dagedtd": (0.0, 1e-3), "evaps": (0.0, 1e-9),
+    # aerosol and isotope fluxes to the ocean scavenged by the residue
+    # melt above (melt / max(hs, 0.05) x burden / dt, burdens <= 1e-7
+    # kg/m^2 of aerosol and ~1 kg/m^2 of isotopes)
+    "faero_ocn": (1e-20, 1e-15), "fiso_ocn": (1e-14, 1e-8),
 }
 # roundoff-sized check values: both sides must stay under the bound
 CHECK_BOUNDS = {"cons_err_area": (1e-12, 1e-5),
@@ -287,10 +291,34 @@ UNPORTED = {
 
 @pytest.mark.parametrize("branch", list(UNPORTED))
 def test_unported_branches_raise_naming_roadmap(branch):
-    """Branches of model_step whose modules wait raise, never skip."""
-    tcfg, _ = _cfgs("float32", **UNPORTED[branch])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tdriver.Model(tcfg, device="cpu").step()
+    """(Kept name: these branches of model_step raised until the
+    biogeochemistry was ported.) Each runs: from the initial state, with a
+    moving ice field so that highfreq's relative wind differs from the
+    wind, step_therm1 (where each option acts) matches the JAX package's,
+    run op by op (a jitted JAX step_therm1 compiles for ~30 s with dEdd),
+    in f64 at RTOL; and Model.step runs to a finite state."""
+    tcfg, jcfg = _cfgs("float64", **UNPORTED[branch])
+    dt = tcfg.setup.dt
+    tm = tdriver.Model(tcfg, device="cpu")
+    jm = JModel(jcfg)
+    rng = np.random.default_rng(40)
+    u, v = (0.3 * (rng.random(tm.grid.shape) - 0.5) for _ in range(2))
+    tm.state = tm.state.replace(uvel=torch.as_tensor(u),
+                                vvel=torch.as_tensor(v))
+    jm.state = jm.state.replace(uvel=jax.numpy.asarray(u),
+                                vvel=jax.numpy.asarray(v))
+    from cice_tpu_torch.model.forcing import get_forcing
+    fc = get_forcing(tcfg, tm.grid, 0.0, 1.0, tm.state.aice, tm.forcing,
+                     datasets={})
+    jfc = jget_forcing(jcfg, jm.grid, 0.0, 1.0, jm.state.aice, jm.forcing)
+    with jax.disable_jit():
+        ref = _tree(jstep_therm1(jm.static, jm.grid, jm.state, jfc, dt))
+    got = tstep_therm1(tm.static, tm.grid, tm.state, fc, dt)
+    _compare(got, ref, f"step_therm1 with {branch}", "float64")
+    tm.step()
+    assert all(bool(torch.isfinite(x).all())
+               for x in (tm.state.aicen, tm.state.vicen,
+                         *tm.state.trcrn.values()))
 
 
 def test_fluxout_numpy_round_trip():
