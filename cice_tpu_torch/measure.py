@@ -182,16 +182,17 @@ def count_host_reads(fn) -> int:
     return count[0]
 
 
-def step_counts(opts: str = "", nx: int = 48, ny: int = 40,
-                device: str = "cpu") -> tuple:
+def step_counts(opts: str = "", device: str = "cuda") -> tuple:
     """(PyTorch operations, host reads) of one `Model.step` of
-    `config.gx1pop_step(nx, ny)` with the comma-separated option sets
-    `opts` of the CLI's table (or `--set`-style 'key=value' items), after
-    one warm step."""
+    `config.gx1pop_step(48, 40)` on `device` with the comma-separated option
+    sets `opts` of the CLI's table (or `--set`-style 'key=value' items),
+    after one warm step. On the CPU the step runs the plain EVP and
+    transport where the card launches K1 and K2, so the CPU's count is
+    higher by their plain operations."""
     from .cli.main import OPTION_SETS, _parse_sets
     from .config import gx1pop_step
     from .model.driver import Model
-    cfg = gx1pop_step(nx, ny)
+    cfg = gx1pop_step(48, 40)
     for opt in filter(None, opts.split(",")):
         over = _parse_sets([opt]) if "=" in opt else OPTION_SETS[opt]
         cfg = cfg.with_overrides(**over)
@@ -201,12 +202,17 @@ def step_counts(opts: str = "", nx: int = 48, ny: int = 40,
 
 
 if __name__ == "__main__":
-    # python -m cice_tpu_torch.measure [opts ...]: operations and host
-    # reads per coupled step of gx1pop_step at 48x40 on the CPU, for each
+    # python -m cice_tpu_torch.measure [--device cpu] [opts ...]: operations
+    # and host reads per coupled step of gx1pop_step at 48x40, for each
     # argument (an option set, a comma list of them, or key=value)
-    import sys
+    import argparse
+    ap = argparse.ArgumentParser(prog="python -m cice_tpu_torch.measure")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("opts", nargs="*")
+    args = ap.parse_args()
     torch.set_num_threads(2)
-    for opts in [""] + sys.argv[1:]:
-        ops, reads = step_counts(opts)
-        print(f"gx1pop_step(48, 40){' + ' + opts if opts else ''}: {ops} "
-              f"PyTorch operations, {reads} host reads per step")
+    for opts in [""] + args.opts:
+        ops, reads = step_counts(opts, args.device)
+        print(f"gx1pop_step(48, 40){' + ' + opts if opts else ''} on "
+              f"{args.device}: {ops} PyTorch operations, {reads} host "
+              f"reads per step")

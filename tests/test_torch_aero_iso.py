@@ -119,6 +119,7 @@ def test_step_isotopes_matches_jax(dtype, coupler):
         fiso_atm=torch.as_tensor(a["fiso_atm"][:2]) if coupler else None)
     for g, r, what in zip(got, ref, ("isosno", "isoice", "fiso_ocn")):
         _close(g, r, f"{what} coupler={coupler}", dtype)
+    assert float(np.asarray(ref[2]).max()) > 0.0      # scavenged to ocean
 
 
 def test_no_species_returns_empty_fluxes():

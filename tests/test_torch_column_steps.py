@@ -142,7 +142,7 @@ def _run_pair(name, dtype, root, over):
 def _atol(leaf, b, e, dtype):
     f32 = dtype == "float32"
     atol = max(ts.RTOL[dtype] * float(np.abs(b).max()),
-               ts.FLOORS.get(leaf, (0.0, 0.0))[f32])
+               ts._floor(leaf, b, f32))
     return max(atol, ENVELOPE * float(np.abs(e - b).max()))
 
 

@@ -134,3 +134,18 @@ def test_model_cuda_without_gpu_raises(monkeypatch):
     tcfg, _ = _cfgs("fused_pallas")
     with pytest.raises(RuntimeError, match="CUDA"):
         tdriver.Model(tcfg, device="cuda")
+
+
+def test_measure_step_counts_runs_on_the_card_by_default(monkeypatch):
+    """`measure.step_counts` and `python -m cice_tpu_torch.measure` count
+    the card's step unless the caller asks for the CPU."""
+    import runpy
+    import sys
+    from cice_tpu_torch import measure
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure.step_counts("aerosol")
+    monkeypatch.setattr(sys, "argv", ["measure", "aerosol"])
+    monkeypatch.delitem(sys.modules, "cice_tpu_torch.measure")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        runpy.run_module("cice_tpu_torch.measure", run_name="__main__")
