@@ -97,7 +97,28 @@ per source, started together), then:
      npz restarts) and 24 steps of gx1pop,evp1d,aerosol, each with the
      freshwater and area checks on every step and, report-only, the
      inventory change of nitrate or of aerosol species 1 beside its
-     deposition less its flux to the ocean.
+     deposition less its flux to the ocean;
+ 13. coupling and I/O at 320x384 (K1 + K2 where the dynamics run): (a)
+     gx1pop,evp1d for a day (daily cdf1 history, daily npz restart) with
+     the background writer off and on: equal final states, byte-identical
+     files, the pointer never naming a missing file, the file step split
+     into serialisation and write; (b) 7 steps of CoupledIce on a
+     standalone Model's forcing imported under coupler names, each equal
+     to `model_step` on the imported Forcing bit for bit, the last with
+     Sa_tbot + 1 K, which must change the result; the exports finite, in
+     range and zero without ice; (c) gx1pop,prescribed for a day (ice_cov
+     .npz; no kernel; aice equal to the data times hm after each reset; no
+     abort); (d) gx1pop,evp1d,bdyrestore for a day, step 13 equal to
+     `model_step` and the nudge bit for bit, untouched outside the zone;
+     (e) the gx1 fixture as pop_bin, pop_nc and MOM grids (pop_nc bit for
+     bit, MOM within 4 ulp in lat/lon/angle) and one step on pop_nc equal
+     to the pop_bin step; (f) the perf sweep at 192x160, 384x320 and
+     768x640 through K1 (routes persistent, persistent, stream), stream K1
+     against `evp_solve` at 768x640 with max abs error 0.0; (g)
+     gx1pop,evp1d,bigdiag for a day (print_points, conserv_check,
+     debug_model), host reads per diagnostics record; where bigdiag's
+     transport check aborts on the exact remap's known ice-edge cell, that
+     abort is printed and the probes run without conserv_check.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -1240,6 +1261,485 @@ def biogeochemistry(dev, smi, reset_counters, read_counters):
     return out
 
 
+A7_ROOT = os.path.join(HERE, "cice_tpu_torch", "_build", "smoke_a7")
+
+
+def _sha(path) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
+    """Phase 13: coupling and I/O at gx1pop's full width. (a) the
+    background writer: gx1pop,evp1d for a day with io_async off and on,
+    equal states and byte-identical files, the pointer never ahead of its
+    file, the file step split into serialisation and write; (b) the
+    coupler: 6 steps of CoupledIce on a standalone Model's forcing, each
+    equal to model_step on the imported Forcing, a seventh with Sa_tbot
+    changed, the exports; (c) gx1pop,prescribed for a day; (d)
+    gx1pop,evp1d,bdyrestore for a day, one step checked against model_step
+    and the nudge; (e) the gx1 fixture as pop_bin, pop_nc and MOM grids, a
+    step on pop_nc against pop_bin; (f) the perf sweep through K1, stream
+    K1 against evp_solve at 768x640; (g) gx1pop,evp1d,bigdiag for a day,
+    host reads per diagnostics record. Files go to A7_ROOT and are
+    removed."""
+    import argparse
+    import contextlib
+    import io as _io
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from cice_tpu_torch import convert
+    from cice_tpu_torch.cli import main as cli, perf as tperf
+    from cice_tpu_torch.core.grid import GRID_FIELDS
+    from cice_tpu_torch.dynamics.evp import evp_solve
+    from cice_tpu_torch.io import fixtures as tfix, grids as tgrids
+    from cice_tpu_torch.io import history as thist, restart as trst
+    from cice_tpu_torch.kernels import evp as kevp
+    from cice_tpu_torch.measure import count_host_reads
+    from cice_tpu_torch.model import diagnostics as tdiag
+    from cice_tpu_torch.model import prescribed as tpres
+    from cice_tpu_torch.model.coupling import IMPORT_MAP, CoupledIce
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.restoring import boundary_zone_weight
+    from cice_tpu_torch.model.state import state_leaves
+    from cice_tpu_torch.model.step import model_step
+
+    shutil.rmtree(A7_ROOT, ignore_errors=True)
+    k12 = lambda n: {"evp_fused": n, "transport_fused": n,
+                     "tracer_fluxes": 0}
+    none = k12(0)
+    out = {}
+
+    def cfg_for(opts, label, *sets):
+        d = os.path.join(A7_ROOT, label)
+        return cli.build_config(argparse.Namespace(opts=opts, set=[
+            f"setup.history_dir={d}/history/",
+            f"setup.restart_dir={d}/restart/",
+            f"setup.pointer_file={d}/restart/ice.restart_file", *sets]))
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, r
+
+    def same_state(x, y, what):
+        for i, (a, b) in enumerate(zip(state_leaves(x), state_leaves(y))):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"{what}: leaf_{i} differs")
+
+    try:
+        # ---- (a) the background writer ---------------------------------
+        # off, on, on, off: each mode twice, in turns on one card
+        runs = []
+        wb_ms: list = []
+        saved = (trst.write_bytes, thist.write_bytes)
+
+        def timed_write_bytes(*a, **k):
+            t = time.perf_counter()
+            saved[0](*a, **k)
+            wb_ms.append((time.perf_counter() - t) * 1e3)
+        trst.write_bytes = thist.write_bytes = timed_write_bytes
+        try:
+            for label, on in (("off1", False), ("on1", True), ("on2", True),
+                              ("off2", False)):
+                m = Model(cfg_for("gx1pop,evp1d", label, "setup.npt=1",
+                                  f"setup.io_async={str(on).lower()}"),
+                          device=dev, enable_history=True)
+                if (m.io_writer is not None) != on or \
+                        (on and not m.io_writer.native):
+                    fail(f"writer {label}: io_writer {m.io_writer}")
+                calls = []
+                for nm, obj in (("restart", m), ("history", m.history)):
+                    fn = getattr(obj, "write_restart" if nm == "restart"
+                                 else "write_stream")
+
+                    def wrapped(*a, _fn=fn, _nm=nm, **k):
+                        n0 = len(wb_ms)
+                        t = time.perf_counter()
+                        r = _fn(*a, **k)
+                        calls.append((_nm, (time.perf_counter() - t) * 1e3,
+                                      sum(wb_ms[n0:])))
+                        return r
+                    setattr(obj, "write_restart" if nm == "restart"
+                            else "write_stream", wrapped)
+                ptr = m.cfg.setup.pointer_file
+                steps, named = [], set()
+
+                def chase():
+                    """The pointer, where there is one, names a file on
+                    disk."""
+                    if os.path.exists(ptr):
+                        with open(ptr) as f:
+                            p = f.read().strip()
+                        if not os.path.exists(p):
+                            fail(f"writer {label}: the pointer names {p}, "
+                                 "which is not on disk")
+                        named.add(os.path.basename(p))
+                reset_counters()
+                for _ in range(24):
+                    n = len(calls)
+                    ms, _ = sync_ms(m.step)
+                    steps.append((ms, len(calls) > n))
+                    chase()
+                launches = read_counters()
+                flush_ms, errs = sync_ms(m.flush_io)
+                chase()
+                if launches != k12(24) or errs:
+                    fail(f"writer {label}: launches {launches}, flush "
+                         f"errors {errs}")
+                busy = [x for x, w in steps if w]
+                d = os.path.join(A7_ROOT, label)
+                files = {}
+                for sub in ("history", "restart"):
+                    for f_ in sorted(os.listdir(os.path.join(d, sub))):
+                        if f_ != "ice.restart_file":
+                            files[f"{sub}/{f_}"] = _sha(
+                                os.path.join(d, sub, f_))
+                run = dict(
+                    label=label, on=on, files=files, named=sorted(named),
+                    launches=launches,
+                    quiet_ms=statistics.median(x for x, w in steps if not w),
+                    file_step_ms=statistics.mean(busy), nfile_steps=len(busy),
+                    serialise_ms={nm: sum(c - w for n_, c, w in calls
+                                          if n_ == nm)
+                                  for nm in ("restart", "history")},
+                    write_ms={nm: sum(w for n_, c, w in calls if n_ == nm)
+                              for nm in ("restart", "history")},
+                    flush_ms=flush_ms)
+                r1 = lambda d: {k: round(v, 1) for k, v in d.items()}
+                print(f"writer {'on' if on else 'off'} ({label}; "
+                      f"gx1pop,evp1d, 24 steps, daily cdf1 history and npz "
+                      f"restart) on {smi}: quiet step {run['quiet_ms']:.1f} "
+                      f"ms (median), file step {run['file_step_ms']:.1f} ms "
+                      f"({len(busy)} step), serialisation ms "
+                      f"{r1(run['serialise_ms'])}, "
+                      + ("submit to the pool" if on else "inline write")
+                      + f" ms {r1(run['write_ms'])}, "
+                      f"flush at the end {flush_ms:.1f} ms; launches "
+                      f"{launches}; the pointer named {sorted(named)}, each "
+                      "on disk when read")
+                if not runs:
+                    first = [t.clone() for t in state_leaves(m.state)]
+                else:
+                    if files != runs[0]["files"] or \
+                            run["named"] != runs[0]["named"] or \
+                            len(files) != 2 or not run["named"]:
+                        fail(f"writer {label}: files {files}, pointer "
+                             f"{run['named']} against {runs[0]}")
+                    for i_, (x, y) in enumerate(zip(state_leaves(m.state),
+                                                    first)):
+                        if not torch.equal(x, y):
+                            fail(f"writer {label}: leaf_{i_} differs from "
+                                 "the first run")
+                runs.append(run)
+                del m
+                shutil.rmtree(d, ignore_errors=True)
+        finally:
+            trst.write_bytes, thist.write_bytes = saved
+        print(f"writer on and off: final states equal bit for bit in all "
+              f"{len(first)} leaves; the history and restart files "
+              f"byte-identical ({sorted(runs[0]['files'])})")
+        out["writer"] = runs
+        del first
+        shutil.rmtree(A7_ROOT, ignore_errors=True)
+
+        # ---- (b) the coupler --------------------------------------------
+        cfg_b = cfg_for("gx1pop,evp1d", "coupler")
+        dt = cfg_b.setup.dt
+        S = Model(cfg_b, device=dev)
+        ice = CoupledIce(cfg_b, device=dev)
+        names = [(c, a_) for c, a_ in IMPORT_MAP.items()
+                 if a_ != "frzmlt_in"]
+        step_ms, lau = [], []
+        for k in range(7):
+            S.forcing = S._forcing()
+            fields = {c: getattr(S.forcing, a_) for c, a_ in names}
+            if k == 6:            # a warmer atmosphere for the last step
+                fields["Sa_tbot"] = fields["Sa_tbot"] + 1.0
+            ice.import_fields(fields)
+            used = ice.coupled_forcing()
+            st0 = ice.model.state
+            ref, _ = model_step(ice.model.static, ice.model.grid, st0, used,
+                                dt)
+            if k == 6:
+                plain = S.forcing
+                base, _ = model_step(ice.model.static, ice.model.grid, st0,
+                                     used.replace(Tair=plain.Tair), dt)
+            reset_counters()
+            ms, _ = sync_ms(ice.step)
+            lau.append(read_counters())
+            step_ms.append(ms)
+            same_state(ice.model.state, ref,
+                       f"coupled step {k + 1} vs model_step on its imports")
+            S.calendar = S.calendar.advance(dt)
+        dtb = max(float((x - y).abs().max()) for x, y in zip(
+            state_leaves(ice.model.state), state_leaves(base))
+            if x.is_floating_point())
+        if not dtb > 0:
+            fail("a changed Sa_tbot left the coupled step unchanged")
+        exp_ms, host = sync_ms(lambda: convert.exports_to_numpy(
+            ice.export_fields()))
+        ai = host["Si_ifrac"]
+        if not all(np.isfinite(v).all() for v in host.values()) or \
+                ai.min() < 0 or ai.max() > 1.0 + 1e-6 or \
+                np.abs(host["Faii_sen"][ai <= 1e-11]).max() != 0.0:
+            fail("the coupler's exports are not finite, in range and "
+                 "zero without ice")
+        if any(x != k12(1) for x in lau):
+            fail(f"coupled steps: launches {lau}")
+        out["coupler"] = dict(step_ms=step_ms, exports_ms=exp_ms,
+                              nexports=len(host), launches=lau[0],
+                              tbot_change=dtb)
+        print(f"coupler (gx1pop,evp1d imports, 7 steps) on {smi}: each "
+              f"step equals model_step on its imported Forcing bit for bit; "
+              f"Sa_tbot + 1 K moves the state by up to {dtb:.3e}; coupled "
+              f"step ms {[round(x, 1) for x in step_ms]}; {len(host)} "
+              f"exports finite, Si_ifrac in [0, 1], scaled fluxes zero "
+              f"without ice, to numpy in {exp_ms:.1f} ms; launches per step "
+              f"{lau[0]}")
+        del S, ice, ref, base, st0, used
+
+        # ---- (c) prescribed ice -----------------------------------------
+        cov_path = tfix.ensure_ice_cov("gx1")
+        cfg_c = cfg_for("gx1pop,prescribed", "prescribed", "setup.npt=1",
+                        "setup.conserv_check=true")
+        mc = Model(cfg_c, device=dev)
+        if mc._ice_cov is None:
+            fail(f"prescribed: {cov_path} was not read")
+        worst = []
+        orig = tpres.prescribe_ice_state
+
+        def checked(cfg, grid, state, data, hin_max):
+            st = orig(cfg, grid, state, data, hin_max)
+            want = torch.clamp(data.to(st.aicen.dtype), 0, 1) * grid.hm
+            worst.append(float((st.aice - want).abs().max()))
+            return st
+        tpres.prescribe_ice_state = checked
+        try:
+            reset_counters()
+            ms_c, _ = sync_ms(lambda: mc.run())
+            lc = read_counters()
+        finally:
+            tpres.prescribe_ice_state = orig
+        if lc != none or len(worst) != 24 or max(worst) != 0.0:
+            fail(f"prescribed: launches {lc}, |aice - data*hm| {worst}")
+        res = max(abs(r["bud_water_residual"]) / max(
+            abs(r["bud_dM"]), abs(r["bud_water_in"]), 1.0)
+            for r in mc.diag_log)
+        out["prescribed"] = dict(steps=24, wall_ms=ms_c, launches=lc,
+                                 records=len(mc.diag_log),
+                                 water_residual_share=res)
+        print(f"prescribed (gx1pop,prescribed, ice_cov.npz, 24 steps) on "
+              f"{smi}: {ms_c:.0f} ms, aice = data x hm exactly after each "
+              f"reset, no abort ({len(mc.diag_log)} conservation records, "
+              f"freshwater residual up to {res:.3e} of the budget: the "
+              f"reset moves mass with no flux); launches {lc}")
+        del mc
+
+        # ---- (d) restoring ----------------------------------------------
+        cfg_d = cfg_for("gx1pop,evp1d,bdyrestore", "restoring",
+                        "setup.npt=1")
+        md = Model(cfg_d, device=dev)
+        zone = boundary_zone_weight(md.grid)
+        lau_d = []
+        for k in range(24):
+            if k == 12:
+                fc = md._forcing()
+                plain, _ = model_step(md.static, md.grid, md.state, fc, dt)
+            reset_counters()
+            md.step()
+            lau_d.append(read_counters())
+            if k == 12:
+                rate = dt / (cfg_d.forcing.trestore * 86400.0)
+                tgt = md._restore_target
+                inside = zone > 0
+                err = 0.0
+                for nm in ("aicen", "vicen", "vsnon"):
+                    p, t_, g = (getattr(plain, nm), tgt[nm],
+                                getattr(md.state, nm))
+                    err = max(err, float((g - (p + rate * zone *
+                                                (t_ - p))).abs().max()))
+                    if not torch.equal(g[:, ~inside], p[:, ~inside]):
+                        fail(f"restoring: {nm} moved outside the zone")
+                sst_err = float((md.state.sst - (plain.sst + rate * (
+                    fc.sst_data - plain.sst))).abs().max())
+                moved = float((md.state.aicen - plain.aicen).abs().max())
+                if err != 0.0 or sst_err != 0.0 or not moved > 0:
+                    fail(f"restoring: nudge error {err}, sst {sst_err}, "
+                         f"moved {moved}")
+        if any(x != k12(1) for x in lau_d):
+            fail(f"restoring: launches {lau_d}")
+        cs = {k: float(v) for k, v in tdiag.check_state(md.state).items()}
+        if cs["nonfinite"]:
+            fail(f"restoring: check_state {cs}")
+        out["restoring"] = dict(launches=lau_d[0], zone_cells=int(
+            (zone > 0).sum()), moved=moved)
+        print(f"restoring (gx1pop,evp1d,bdyrestore, 24 steps) on {smi}: "
+              f"step 13 equals model_step then the nudge bit for bit (zone "
+              f"{int((zone > 0).sum())} cells, 3 rows at the open edges, "
+              f"aicen moved up to {moved:.3e}; outside untouched; SST "
+              f"relaxed); no abort; launches per step {lau_d[0]}")
+        del md, plain, fc
+
+        # ---- (e) grids ---------------------------------------------------
+        forms = tfix.ensure_grid_forms("gx1")
+        base = cfg_for("gx1pop,evp1d", "grids")
+        fmts = {"pop_bin": {},
+                "pop_nc": {"grid.grid_format": "pop_nc",
+                           "grid.grid_file": forms["pop_nc"],
+                           "grid.kmt_file": ""},
+                "mom": {"grid.grid_format": "mom",
+                        "grid.grid_file": forms["mom"],
+                        "grid.kmt_file": forms["mask"]}}
+        load_ms, grids = {}, {}
+        for f_, over in fmts.items():
+            load_ms[f_], grids[f_] = sync_ms(lambda: tgrids.load_grid_files(
+                base.with_overrides(**over), device=dev))
+        mom_ulp = 0.0
+        for k in GRID_FIELDS:
+            a_, b_, c_ = (getattr(grids[f_], k) for f_ in fmts)
+            if not torch.equal(a_, b_):
+                fail(f"grids: pop_nc differs from pop_bin in {k}")
+            if k in ("ULAT", "ULON", "TLAT", "TLON", "ANGLE", "ANGLET"):
+                # through degrees: within 4 ulp of the field's largest value
+                ulp = float((a_ - c_).abs().max()) / (
+                    torch.finfo(a_.dtype).eps * float(a_.abs().max()))
+                mom_ulp = max(mom_ulp, ulp)
+                if ulp > 4:
+                    fail(f"grids: MOM {k} {ulp} ulp from pop_bin")
+            elif not torch.equal(a_, c_):
+                fail(f"grids: MOM differs from pop_bin in {k}")
+        steps_e, lau_e = {}, {}
+        for f_ in ("pop_bin", "pop_nc"):
+            me = Model(base.with_overrides(**fmts[f_]), device=dev)
+            reset_counters()
+            me.step()
+            lau_e[f_] = read_counters()
+            steps_e[f_] = me.state
+        same_state(steps_e["pop_nc"], steps_e["pop_bin"],
+                   "a gx1pop,evp1d step on the pop_nc grid vs pop_bin")
+        if any(x != k12(1) for x in lau_e.values()):
+            fail(f"grids: launches {lau_e}")
+        out["grids"] = dict(load_ms=load_ms, mom_max_ulp=mom_ulp,
+                            launches=lau_e["pop_nc"])
+        print(f"grids (gx1 fixture, 320x384) on {smi}: pop_nc equals "
+              f"pop_bin bit for bit in all {len(GRID_FIELDS)} fields, MOM "
+              f"equal in the metrics and within {mom_ulp:.2f} ulp (gate 4) "
+              f"in lat/lon/angle; a gx1pop,evp1d step on pop_nc equals "
+              f"pop_bin's bit for bit; load ms {load_ms}; launches "
+              f"{lau_e['pop_nc']}")
+        del grids, steps_e, me
+
+        # ---- (f) perf -----------------------------------------------------
+        rows = tperf.run_perf(sizes=((192, 160), (384, 320), (768, 640)),
+                              ndte=120, out=lambda s: None, device=dev)
+        routes = [r["route"] for r in rows[:3]]
+        if routes != ["persistent", "persistent", "stream"]:
+            fail(f"perf: K1 routes {routes}")
+        args, kw = tperf._setup(768, 640, 120, dev)
+        kevp.stream_launches = 0
+        got = kevp.evp_solve_fused(*args, **kw)
+        ref = evp_solve(*args, **kw)
+        torch.cuda.synchronize()
+        if kevp.stream_launches != 1:
+            fail("perf: K1 at 768x640 did not take the stream route")
+        perf_err = _exact(got, ref)
+        speed = float(torch.sqrt(ref[0] ** 2 + ref[1] ** 2).max())
+        if perf_err != 0.0 or not speed > 0:
+            fail(f"perf: stream K1 at 768x640 against evp_solve: max abs "
+                 f"error {perf_err}, max speed {speed}")
+        reset_counters()
+        out["perf"] = dict(rows=rows, stream_max_abs_err=perf_err)
+        for r in rows:
+            print(f"perf {r['sweep']} {r['grid']} (ndte 120) on {smi}: "
+                  f"route {r['route']}, {r['s_per_dynstep'] * 1e3:.3f} ms "
+                  f"per solve (host clock, best of 5), {r['Mptsub_s']:.1f} "
+                  "Mpt*subcycles/s")
+        print(f"perf: stream K1 at 768x640 equals evp_solve, max abs error "
+              f"{perf_err} over its nine outputs")
+        del args, kw, got, ref
+
+        # ---- (g) probes ----------------------------------------------------
+        def probe_day(opts, label, *sets):
+            mg = Model(cfg_for(opts, label, "setup.npt=1", *sets),
+                       device=dev)
+            reads, lau_g = [], []
+            buf = _io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                for _ in range(24):
+                    reset_counters()
+                    reads.append((count_host_reads(mg.step),
+                                  mg.calendar.istep % mg.cfg.setup.diagfreq
+                                  == 0))
+                    lau_g.append(read_counters())
+            return mg, reads, lau_g, buf.getvalue()
+
+        try:
+            mg, reads, lau_g, dump = probe_day("gx1pop,evp1d,bigdiag",
+                                               "probes")
+            ran = "gx1pop,evp1d,bigdiag"
+        except RuntimeError as e:
+            if not str(e).endswith(": negative mass after remap (early "
+                                   "checkpoint written)"):
+                raise
+            # the exact remap's known ice-edge cell (ROADMAP section C):
+            # bigdiag's conservation checks abort there; the probes run
+            # without them
+            print(f"probes: gx1pop,evp1d,bigdiag aborts on the known "
+                  f"ice-edge cell of the exact remap: {e}")
+            mg, reads, lau_g, dump = probe_day(
+                "gx1pop,evp1d,diagpt1", "probes2", "setup.debug_model=true")
+            ran = "gx1pop,evp1d,diagpt1 with debug_model"
+        quiet = statistics.median(r for r, rec in reads if not rec)
+        per_rec = [r - quiet for r, rec in reads if rec]
+        pts = mg.points
+        probe_reads = count_host_reads(lambda: tdiag.print_points_state(
+            mg.grid, mg.state, points=pts))
+        debug_reads = count_host_reads(lambda: tdiag.debug_ice(
+            mg.grid, mg.state, pts[0]["j"], pts[0]["i"]))
+        recs = [r for r in mg.diag_log if "points" in r]
+        if not recs or any(x != k12(1) for x in lau_g):
+            fail(f"probes: records {len(recs)}, launches {lau_g}")
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out",
+                               "phase13_debug_model.txt"), "w") as f:
+            f.write(dump)
+        out["probes"] = dict(run=ran, reads_per_quiet_step=quiet,
+                             reads_per_record=per_rec,
+                             probe_reads=probe_reads,
+                             debug_reads=debug_reads,
+                             points=recs[-1]["points"], launches=lau_g[0])
+        print(f"probes ({ran}, 24 steps) on {smi}: host reads per step "
+              f"{quiet} without a record, +{per_rec} on the diagnostics "
+              f"steps (the record, the probes' {probe_reads} among them); "
+              f"the debug dump {debug_reads} per step "
+              f"({dump.count('debug_model step')} dumps, "
+              f"chiprun_out/phase13_debug_model.txt); last probes "
+              f"{json.dumps(recs[-1]['points'])}; launches per step "
+              f"{lau_g[0]}")
+        out["launches"] = {
+            "writer_off": out["writer"][0]["launches"],
+            "writer_on": out["writer"][1]["launches"],
+            "coupler_per_step": out["coupler"]["launches"],
+            "prescribed": out["prescribed"]["launches"],
+            "restoring_per_step": out["restoring"]["launches"],
+            "pop_nc_step": out["grids"]["launches"],
+            "probes_per_step": out["probes"]["launches"]}
+        return out
+    finally:
+        shutil.rmtree(A7_ROOT, ignore_errors=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cice_tpu_torch", "csrc")):
         print("chip_smoke: the cice_tpu_torch package is not beside this "
@@ -1641,6 +2141,10 @@ def main() -> int:
     cols = column_physics(dev, smi, reset_counters, read_counters)
     # ---- the biogeochemistry --------------------------------------------
     bgc = biogeochemistry(dev, smi, reset_counters, read_counters)
+    # ---- coupling and I/O -----------------------------------------------
+    a7 = coupling_and_io(dev, smi, reset_counters, read_counters)
+    on_a7 = {k: {p: v[k] for p, v in a7["launches"].items()}
+             for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
     on_base = {k: {r: base[r]["launches"][k]
                    for r in ("gx1pop", "gx3pop", "tx1pop")}
                for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
@@ -1676,7 +2180,14 @@ def main() -> int:
                      "bound_ms": cols["k1"]["bound"][0],
                      "max_abs_err": cols["k1"]["err"],
                      "launches": on_cols["evp_fused"]},
-         "bgcz": on_bgcz("K1", "evp_fused")},
+         "bgcz": on_bgcz("K1", "evp_fused"),
+         "coupling_io": {"launches": on_a7["evp_fused"],
+                         "perf": [{k: r[k] for k in ("sweep", "grid",
+                                                     "route", "s_per_dynstep",
+                                                     "Mptsub_s")}
+                                  for r in a7["perf"]["rows"]],
+                         "stream_768x640_max_abs_err":
+                             a7["perf"]["stream_max_abs_err"]}},
         {"name": "transport_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/transport_fused.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:653",
@@ -1698,7 +2209,8 @@ def main() -> int:
                      "bound_ms": cols["k2"]["bound"][0],
                      "max_abs_err": cols["k2"]["err"],
                      "launches": on_cols["transport_fused"]},
-         "bgcz": on_bgcz("K2", "transport_fused")},
+         "bgcz": on_bgcz("K2", "transport_fused"),
+         "coupling_io": {"launches": on_a7["transport_fused"]}},
         {"name": "tracer_fluxes", "route": "cuda",
          "source": "cice_tpu_torch/csrc/tracer_fluxes.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:261",
@@ -1713,7 +2225,8 @@ def main() -> int:
                    "plain_ms": cgrid["k3_cgrid"]["plain_ms"],
                    "bound_ms": cgrid["k3_cgrid"]["bound"][0],
                    "max_abs_err": cgrid["k3_cgrid"]["err"]},
-         "bgcz": on_bgcz("K3", "tracer_fluxes")},
+         "bgcz": on_bgcz("K3", "tracer_fluxes"),
+         "coupling_io": {"launches": on_a7["tracer_fluxes"]}},
     ]
     out = {"kernels": results}
     # ridging passes on the main path's last state and deformation
@@ -1744,7 +2257,7 @@ def main() -> int:
                        freshwater_residual=wres, ridge_passes=rdg["npass"],
                        transport_checks=tc, restart_history=rh,
                        baseline=base, cgrid=cgrid, columns=cols,
-                       biogeochemistry=bgc), f,
+                       biogeochemistry=bgc, coupling_io=a7), f,
                   indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

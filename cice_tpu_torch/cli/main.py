@@ -1,17 +1,25 @@
-"""Command-line interface of the port (a subset of cice_tpu/cli/main.py):
-runs and the smoke, restart and baseline tests.
+"""Command-line interface of the port (cice_tpu/cli/main.py's commands):
+runs, case directories, single tests, suites, the EVP performance sweep,
+the statistical QC comparison and plots.
 
-    python -m cice_tpu_torch.cli run  [--opts a,b] [--set k=v ...] [--steps N]
-    python -m cice_tpu_torch.cli test --type smoke|restart|baseline \
+    python -m cice_tpu_torch.cli run   [--opts a,b] [--set k=v ...] [--steps N]
+    python -m cice_tpu_torch.cli case  --dir DIR [--opts a,b] [--set k=v ...]
+    python -m cice_tpu_torch.cli test  --type smoke|restart|baseline \
         [--opts a,b] [--set k=v ...] [--bgen DIR] [--bcmp DIR]
+    python -m cice_tpu_torch.cli suite --name quick [--set k=v ...]
+    python -m cice_tpu_torch.cli perf  [--sizes 192x160,...] [--ndte 120]
+    python -m cice_tpu_torch.cli qc DIR_A DIR_B [--var hi]
+    python -m cice_tpu_torch.cli plot2d FILE... [-f aice]
+    python -m cice_tpu_torch.cli timeseries DIAG.json [-k key]
 
 `--device` defaults to `cuda`; `--device cpu` runs on the CPU. The option
-sets are the JAX package's table (the reference's set_nml.* fragments);
-"{FIX}" resolves to the port's fixture root ($CICE_TPU_TORCH_FIXTURES),
-where the gx3/gx1/tx1 baseline fixtures are written on first use. An option
-set whose modules are not ported raises from `Model`, naming its ROADMAP
-item. The `suite`, `case`, `bench`, `perf`, `qc` and plot commands wait for
-ROADMAP A7.
+sets and suites are the JAX package's tables (the reference's set_nml.*
+fragments and tests/*.ts); "{FIX}" resolves to the port's fixture root
+($CICE_TPU_TORCH_FIXTURES), where the gx3/gx1/tx1 baseline fixtures are
+written on first use. What waits for the multi-GPU slice (ROADMAP A8:
+`test --type decomp`, the `pio` restarts of `iopio`, `perf --mesh` above
+1) raises NotImplementedError naming it; a suite counts such a row as
+failed and goes on.
 
 `test --type baseline` runs the full length of an option set (gx3pop,
 gx1pop, tx1pop) with history, archives {"final", "series", "timers"} as
@@ -402,6 +410,44 @@ def _diags(m) -> dict:
     return {k: float(v) for k, v in runtime_diags(m.grid, m.state).items()}
 
 
+def cmd_case(args):
+    """A case directory: `config.json` (the option sets' overrides, then
+    the --set pairs) and a `run.py` that runs it with history on
+    `--device` (default cuda)."""
+    os.makedirs(args.dir, exist_ok=True)
+    overlay = {}
+    for opt in (args.opts or "").split(","):
+        if opt:
+            if opt not in OPTION_SETS:
+                sys.exit(f"unknown option set '{opt}' "
+                         f"(available: {', '.join(OPTION_SETS)})")
+            overlay.update(OPTION_SETS[opt])
+    overlay.update(_parse_sets(args.set))
+    with open(os.path.join(args.dir, "config.json"), "w") as f:
+        json.dump(overlay, f, indent=2)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    runner = os.path.join(args.dir, "run.py")
+    with open(runner, "w") as f:
+        f.write(
+            "#!/usr/bin/env python3\n"
+            "import json, os, sys\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "from cice_tpu_torch.cli.main import _resolve_fixtures\n"
+            "from cice_tpu_torch.config import Config\n"
+            "from cice_tpu_torch.model.driver import Model\n"
+            "here = os.path.dirname(os.path.abspath(__file__))\n"
+            "with open(os.path.join(here, 'config.json')) as f:\n"
+            "    over = _resolve_fixtures(json.load(f))\n"
+            "cfg = Config().with_overrides(**over)\n"
+            f"m = Model(cfg, device={args.device!r}, enable_history=True)\n"
+            "m.run()\n"
+            "print('done at', m.calendar.timestamp())\n")
+    os.chmod(runner, 0o755)
+    print(f"case created: {args.dir}")
+    return 0
+
+
 def cmd_run(args):
     from ..model.driver import Model
     m = Model(build_config(args), device=args.device,
@@ -484,6 +530,7 @@ def _test_restart(cfg, device) -> bool:
         m2 = Model(cfg, device=device)
         m2.run(3)
         path = m2.write_restart()
+        m2.flush_io()                 # durability barrier (io_async)
         m3 = Model(cfg, device=device)
         m3.state, m3.calendar = read_restart(path, m3.state)
         m3.run(3)
@@ -563,23 +610,28 @@ def _default_test_cfg(args, cfg):
 
 
 def cmd_test(args):
+    if args.type == "decomp":
+        raise NotImplementedError(
+            "test --type decomp compares runs across a device mesh "
+            "(ROADMAP A8: multi-GPU)")
     cfg = _default_test_cfg(args, build_config(args))
     t0 = time.time()
     label = (args.opts or "base").replace(",", "+")
+    bgen, bcmp = getattr(args, "bgen", None), getattr(args, "bcmp", None)
     if args.type == "baseline":
-        ok = _test_baseline(cfg, label, args.device, args.bgen, args.bcmp)
-    elif args.bgen or args.bcmp:
+        ok = _test_baseline(cfg, label, args.device, bgen, bcmp)
+    elif bgen or bcmp:
         # baseline generate/compare of the per-step diagnostics series
         # (cice.setup --bgen/--bcmp, ug_testing.rst:70-86)
         key = f"{args.type}_{label}.json"
         _, series = _diag_series(cfg, args.device)
-        if args.bgen:
-            os.makedirs(args.bgen, exist_ok=True)
-            with open(os.path.join(args.bgen, key), "w") as f:
+        if bgen:
+            os.makedirs(bgen, exist_ok=True)
+            with open(os.path.join(bgen, key), "w") as f:
                 json.dump(series, f)
             print(f"BGEN  {key} ({time.time() - t0:.1f}s)")
             return 0
-        with open(os.path.join(args.bcmp, key)) as f:
+        with open(os.path.join(bcmp, key)) as f:
             errs = compare_series(json.load(f), series)
         print(f"{'PASS' if not errs else 'FAIL'} bcmp_{args.type} vs {key} "
               f"({len(errs)} mismatches, {time.time() - t0:.1f}s)")
@@ -592,6 +644,114 @@ def cmd_test(args):
     print(f"{'PASS' if ok else 'FAIL'} test_{args.type} "
           f"({time.time() - t0:.1f}s)")
     return 0 if ok else 1
+
+
+# suite tables (tests/*.ts analogue), the JAX package's. Rows: (type,
+# opts[, bfbcomp-opts]): the optional third column makes another row's
+# diagnostics series the bit-for-bit oracle of this row (base_suite.ts
+# 5th column semantics).
+SUITES = {
+    "quick": [("smoke", ""), ("restart", "")],
+    "dynamics": [("smoke", ""), ("smoke", "gridc"), ("smoke", "dynpicard"),
+                 ("smoke", "eap"), ("smoke", "nodyn"), ("smoke", "upwind")],
+    "base": [("smoke", ""), ("restart", ""), ("smoke", "gridc"),
+             ("smoke", "dynpicard"), ("smoke", "upwind"),
+             ("restart", "upwind"), ("smoke", "seasonal")],
+    "decomp": [("decomp", ""), ("decomp", "upwind")],
+    "reprosum": [("smoke", "", ""), ("smoke", "ndte120")],
+    # alternate-physics sweep (base_suite.ts alt* rows)
+    "alt": [("smoke", "alt01"), ("smoke", "alt02"), ("smoke", "alt03"),
+            ("smoke", "alt05"), ("smoke", "alt06"), ("smoke", "alt07")],
+    # IO backends x restart exactness (io_suite.ts)
+    "io": [("restart", ""), ("restart", "iocdf1"), ("restart", "iopio"),
+           ("restart", "ioasync"), ("smoke", "histdaily"),
+           ("smoke", "histinst")],
+    # column-physics option sweep
+    "column": [("smoke", "mushy"), ("smoke", "bl99"), ("smoke", "dedd"),
+               ("smoke", "pondlvl"), ("smoke", "pondtopo"),
+               ("smoke", "pondsealvl"), ("smoke", "snwgrain"),
+               ("smoke", "fsd12"), ("smoke", "saltflux"),
+               ("smoke", "congel")],
+    # the five BASELINE.json configurations at production size
+    "baseline": [("baseline", "gx3pop"), ("baseline", "gx1pop"),
+                 ("baseline", "tx1pop"), ("baseline", "gx1pop,dynpicard"),
+                 ("baseline", "gx1pop,gridc")],
+    # the same with the gx1/tx1 rows' clocks shortened
+    "baseline_ci": [("baseline", "gx3pop"), ("baseline", "gx1pop,hours3"),
+                    ("baseline", "tx1pop,day1"),
+                    ("baseline", "gx1pop,dynpicard,hours3"),
+                    ("baseline", "gx1pop,gridc,hours3")],
+}
+
+
+def cmd_suite(args):
+    """Run a suite's rows; a row that raises fails and the suite goes on.
+    Exits 0 only if every row passed."""
+    rows = SUITES.get(args.name)
+    if rows is None:
+        sys.exit(f"unknown suite '{args.name}' "
+                 f"(available: {', '.join(SUITES)})")
+    results = []
+    series_cache = {}
+
+    def config(opts):
+        ns = argparse.Namespace(opts=opts, set=args.set, type="smoke")
+        return _default_test_cfg(ns, build_config(ns))
+
+    for row in rows:
+        ttype, opts = row[0], row[1]
+        bfb_ref = row[2] if len(row) > 2 else None
+        try:
+            if bfb_ref is not None and ttype == "smoke":
+                # this row's series against the referenced row's (run and
+                # cached on demand); ref == opts is run-to-run repro
+                if bfb_ref not in series_cache:
+                    _, series_cache[bfb_ref] = _diag_series(config(bfb_ref),
+                                                            args.device)
+                _, series = _diag_series(config(opts), args.device)
+                ok = not compare_series(series_cache[bfb_ref], series)
+                series_cache[opts] = series
+            else:
+                ok = cmd_test(argparse.Namespace(
+                    opts=opts, set=args.set, type=ttype,
+                    device=args.device, bgen=None, bcmp=None)) == 0
+        except Exception as e:     # a crashed row fails, the suite goes on
+            print(f"  ERROR {ttype} {opts}: {type(e).__name__}: {e}")
+            ok = False
+        results.append((ttype, opts, ok))
+    npass = sum(1 for *_, ok in results if ok)
+    for ttype, opts, ok in results:
+        print(f"  {'PASS' if ok else 'FAIL'}  {ttype:8s} {opts}")
+    print(f"{npass}/{len(results)} passed")
+    return 0 if npass == len(results) else 1
+
+
+def cmd_perf(args):
+    from .perf import run_perf
+    sizes = tuple(tuple(int(v) for v in s.split("x"))
+                  for s in args.sizes.split(","))
+    run_perf(sizes=sizes, ndte=args.ndte,
+             mesh_devices=tuple(int(v) for v in args.mesh.split(",")),
+             weak_tile=tuple(int(v) for v in args.weak_tile.split("x")),
+             device=args.device)
+    return 0
+
+
+def cmd_qc(args):
+    from . import qc
+    return qc.main([args.dir_a, args.dir_b, args.var])
+
+
+def cmd_plot2d(args):
+    from .plots import plot2d
+    print("\n".join(plot2d(args.paths, args.field, args.out)))
+    return 0
+
+
+def cmd_timeseries(args):
+    from .plots import timeseries
+    print(timeseries(args.diag_path, args.keys, args.out))
+    return 0
 
 
 def main(argv=None):
@@ -611,15 +771,63 @@ def main(argv=None):
     p_run.add_argument("--history", action="store_true")
     p_run.set_defaults(fn=cmd_run)
 
+    p_case = sub.add_parser("case", help="create a case directory")
+    common(p_case)
+    p_case.add_argument("--dir", required=True)
+    p_case.set_defaults(fn=cmd_case)
+
     p_test = sub.add_parser("test", help="run a single test")
     common(p_test)
-    p_test.add_argument("--type", choices=["smoke", "restart", "baseline"],
-                        default="smoke")
+    p_test.add_argument("--type", choices=["smoke", "restart", "decomp",
+                                           "baseline"], default="smoke")
     p_test.add_argument("--bgen", default=None, metavar="DIR",
                         help="write the baseline (series) there")
     p_test.add_argument("--bcmp", default=None, metavar="DIR",
                         help="compare against a stored baseline")
     p_test.set_defaults(fn=cmd_test)
+
+    p_suite = sub.add_parser("suite", help="run a test suite")
+    p_suite.add_argument("--name", default="quick")
+    p_suite.add_argument("--set", action="append", metavar="KEY=VAL")
+    p_suite.add_argument("--device", default="cuda",
+                         help="torch device: cuda (default) or cpu")
+    p_suite.set_defaults(fn=cmd_suite)
+
+    p_perf = sub.add_parser(
+        "perf", help="EVP performance sweep through K1 (perf_suite.ts "
+        "analogue)")
+    p_perf.add_argument("--sizes", default="192x160,384x320,768x640",
+                        help="comma list of NYxNX grid sizes")
+    p_perf.add_argument("--ndte", type=int, default=120)
+    p_perf.add_argument("--mesh", default="1",
+                        help="device counts of the scaling sweeps (above "
+                        "1: ROADMAP A8)")
+    p_perf.add_argument("--weak-tile", default="192x160",
+                        help="per-device tile of the weak-scaling sweep")
+    p_perf.add_argument("--device", default="cuda",
+                        help="torch device: cuda (default) or cpu")
+    p_perf.set_defaults(fn=cmd_perf)
+
+    p_qc = sub.add_parser(
+        "qc", help="two-stage statistical QC comparison of two runs")
+    p_qc.add_argument("dir_a")
+    p_qc.add_argument("dir_b")
+    p_qc.add_argument("--var", default="hi")
+    p_qc.set_defaults(fn=cmd_qc)
+
+    p_p2 = sub.add_parser("plot2d", help="map plot of a history field "
+                          "(ciceplots2d.py analogue)")
+    p_p2.add_argument("paths", nargs="+")
+    p_p2.add_argument("--field", "-f", default="aice")
+    p_p2.add_argument("--out", default=None)
+    p_p2.set_defaults(fn=cmd_plot2d)
+
+    p_ts = sub.add_parser("timeseries", help="diagnostics time-series plot "
+                          "(timeseries.py analogue)")
+    p_ts.add_argument("diag_path")
+    p_ts.add_argument("--keys", "-k", action="append", default=None)
+    p_ts.add_argument("--out", default=None)
+    p_ts.set_defaults(fn=cmd_timeseries)
 
     args = ap.parse_args(argv)
     return args.fn(args)

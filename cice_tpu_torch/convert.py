@@ -6,6 +6,7 @@ them into the port's tensors here, so both implementations see identical
 inputs; `*_to_numpy` goes back the other way. `tree_to_numpy` flattens any
 nest of dicts, lists, named tuples and tensors (a `FluxOut`'s dicts,
 `step_therm1`'s `agg`) to {dotted key: array} for key-by-key comparison.
+`exports_to_numpy` hands a host coupler the ice's exports.
 """
 
 from __future__ import annotations
@@ -64,6 +65,12 @@ def forcing_from_numpy(d: dict, device="cuda") -> Forcing:
 
 def forcing_to_numpy(fc: Forcing) -> dict:
     return {k: _np(getattr(fc, k)) for k in FORCING_FIELDS}
+
+
+def exports_to_numpy(fields: dict) -> dict:
+    """A coupler's view of `CoupledIce.export_fields()` (tensors on the
+    device): {name: numpy array}, each copied to the host."""
+    return {k: _np(v) for k, v in fields.items()}
 
 
 def dynprep_from_numpy(d: dict, device="cuda") -> DynPrep:

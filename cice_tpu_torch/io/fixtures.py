@@ -342,3 +342,146 @@ def ensure_baseline_fixtures(root: str | None = None, year: int = 2005,
             f.write("ok\n")
         os.replace(tmp, done)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the fixture grid in its other file forms: POP netCDF and MOM supergrid
+# ---------------------------------------------------------------------------
+
+def _write_nc(path: str, dims: dict, variables: dict) -> None:
+    """A netCDF3 file of float64 variables {name: (dim names, array)},
+    written under a temporary name and renamed."""
+    from scipy.io import netcdf_file
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with netcdf_file(tmp, "w") as f:
+        for name, size in dims.items():
+            f.createDimension(name, size)
+        for name, (vdims, arr) in variables.items():
+            f.createVariable(name, "d", vdims)[:] = arr
+    os.replace(tmp, path)
+
+
+def write_pop_grid_nc(path: str, d: dict, kmt: np.ndarray) -> None:
+    """POP netCDF3 grid (the popgrid_nc layout, ice_grid.F90:1077): ulat,
+    ulon, angle (radians), htn, hte (cm) and kmt on (nj, ni), the values of
+    the POP binary records `d` (`io.grids.read_pop_grid_binary`) unchanged."""
+    ny, nx = d["ULAT"].shape
+    dims = ("nj", "ni")
+    _write_nc(path, {"nj": ny, "ni": nx}, {
+        "ulat": (dims, d["ULAT"]), "ulon": (dims, d["ULON"]),
+        "htn": (dims, d["HTN"]), "hte": (dims, d["HTE"]),
+        "angle": (dims, d["ANGLE"]), "kmt": (dims, kmt)})
+
+
+def _supernodes(corner: np.ndarray) -> np.ndarray:
+    """(2ny+1, 2nx+1) supergrid nodes whose even nodes from (2, 2) on are
+    `corner` (ny, nx): the first row and column are extrapolated linearly,
+    odd nodes are means of their even neighbours. Grid readers use only
+    the even nodes from (2, 2) on."""
+    ny, nx = corner.shape
+    c = np.empty((ny + 1, nx + 1))
+    c[1:, 1:] = corner
+    c[0, 1:] = 2.0 * corner[0] - corner[1]
+    c[:, 0] = 2.0 * c[:, 1] - c[:, 2]
+    s = np.empty((2 * ny + 1, 2 * nx + 1))
+    s[::2, ::2] = c
+    s[::2, 1::2] = 0.5 * (c[:, :-1] + c[:, 1:])
+    s[1::2, :] = 0.5 * (s[:-1:2, :] + s[2::2, :])
+    return s
+
+
+def write_mom_supergrid(path: str, d: dict) -> None:
+    """MOM6 supergrid netCDF3 (ice_grid.F90:1702's layout) of POP binary
+    records `d`: U corners at the even nodes (degrees), each T-cell edge
+    split into two equal halves in metres (dx on the rows of the north
+    edges, dy on the columns of the east edges). Halving an edge and
+    adding the halves back are exact in binary floating point, so HTN and
+    HTE come back bit for bit; the lat/lon and angle pass through degrees
+    and come back to a few ulp."""
+    ny, nx = d["ULAT"].shape
+    rad2deg = 180.0 / np.pi
+    half_n = 0.5 * (d["HTN"] * 0.01)           # cm -> m, as popgrid scales
+    half_e = 0.5 * (d["HTE"] * 0.01)
+    dx = np.empty((2 * ny + 1, 2 * nx))
+    dx[2::2, 0::2] = half_n
+    dx[2::2, 1::2] = half_n
+    dx[0] = dx[2]
+    dx[1::2] = 0.5 * (dx[:-1:2] + dx[2::2])
+    dy = np.empty((2 * ny, 2 * nx + 1))
+    dy[0::2, 2::2] = half_e
+    dy[1::2, 2::2] = half_e
+    dy[:, 0] = dy[:, 2]
+    dy[:, 1::2] = 0.5 * (dy[:, :-1:2] + dy[:, 2::2])
+    _write_nc(path, {"nyp": 2 * ny + 1, "nxp": 2 * nx + 1, "ny": 2 * ny,
+                     "nx": 2 * nx}, {
+        "x": (("nyp", "nxp"), _supernodes(d["ULON"] * rad2deg)),
+        "y": (("nyp", "nxp"), _supernodes(d["ULAT"] * rad2deg)),
+        "dx": (("nyp", "nx"), dx), "dy": (("ny", "nxp"), dy),
+        "angle_dx": (("nyp", "nxp"), _supernodes(d["ANGLE"] * rad2deg))})
+
+
+def write_ocean_mask_nc(path: str, kmt: np.ndarray) -> None:
+    """MOM ocean mask: `mask` (ny, nx), 1 = ocean."""
+    ny, nx = kmt.shape
+    _write_nc(path, {"ny": ny, "nx": nx},
+              {"mask": (("ny", "nx"), (kmt > 0.5).astype(np.float64))})
+
+
+def write_grid_forms(grid_bin: str, kmt_bin: str, nx: int, ny: int,
+                     stem: str) -> dict:
+    """The POP binary grid `grid_bin` + `kmt_bin` as a POP netCDF file
+    (`<stem>_grid.nc`), a MOM supergrid (`<stem>_mom_supergrid.nc`) and
+    its ocean mask (`<stem>_ocean_mask.nc`), each written unless present.
+    Returns {"pop_nc", "mom", "mask"} paths."""
+    from .grids import read_kmt_binary, read_pop_grid_binary
+    out = {"pop_nc": f"{stem}_grid.nc", "mom": f"{stem}_mom_supergrid.nc",
+           "mask": f"{stem}_ocean_mask.nc"}
+    if all(os.path.exists(p) for p in out.values()):
+        return out
+    d = read_pop_grid_binary(grid_bin, nx, ny)
+    kmt = read_kmt_binary(kmt_bin, nx, ny)
+    write_pop_grid_nc(out["pop_nc"], d, kmt)
+    write_mom_supergrid(out["mom"], d)
+    write_ocean_mask_nc(out["mask"], kmt)
+    return out
+
+
+def ensure_grid_forms(name: str = "gx1", root: str | None = None) -> dict:
+    """The baseline fixture grid `name` (written first if missing) in its
+    POP netCDF and MOM forms beside its binaries under `root`/grids."""
+    root = root or fixtures_root()
+    fx = ensure_baseline_fixtures(root)[name]
+    stem = os.path.join(root, "grids", name)
+    return write_grid_forms(fx["grid"], fx["kmt"], fx["nx"], fx["ny"], stem)
+
+
+def write_ice_cov_npz(dirpath: str, TLATd, seed: int = 0) -> str:
+    """Monthly ice-coverage data for prescribed-ice runs
+    (`<dirpath>/ice_cov.npz`, key `ice_cov`, (12, ny, nx) in [0, 1]): a
+    seasonal polar cap whose edge moves with the month, its concentration
+    drawn from `seed` between 0.6 and 1."""
+    os.makedirs(dirpath, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lat = np.asarray(TLATd, np.float64)
+    cov = np.empty((12,) + lat.shape)
+    for m in range(12):
+        phase = np.cos(2.0 * np.pi * (m + 0.5 - 2.6) / 12.0)
+        cap = (lat > 68.0 - 8.0 * phase) | (lat < -(62.0 + 6.0 * phase))
+        cov[m] = np.where(cap, 0.6 + 0.4 * rng.random(lat.shape), 0.0)
+    path = os.path.join(dirpath, "ice_cov.npz")
+    _atomic_savez(path, ice_cov=cov)
+    return path
+
+
+def ensure_ice_cov(name: str = "gx1", root: str | None = None) -> str:
+    """`ice_cov.npz` in the baseline fixture `name`'s forcing directory
+    (the `atm_data_dir` of its option set), written once from seed 0."""
+    root = root or fixtures_root()
+    fx = ensure_baseline_fixtures(root)[name]
+    path = os.path.join(fx["forcing"], "ice_cov.npz")
+    if not os.path.exists(path):
+        from .grids import read_pop_grid_binary
+        d = read_pop_grid_binary(fx["grid"], fx["nx"], fx["ny"])
+        TLATd = np.rad2deg(_tlatlon(d["ULAT"], d["ULON"])[0])
+        write_ice_cov_npz(fx["forcing"], TLATd)
+    return path

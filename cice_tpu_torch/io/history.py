@@ -9,7 +9,8 @@ device, stacks them with one `torch.cat` and adds the stack (or a stream's
 rows of it) to one accumulator per averaging stream: one add per step. At a
 stream boundary the accumulator comes to the host, where numpy divides it
 by the number of steps accumulated and masks land, and one file is written
-(netCDF-3 classic through scipy, HDF5 through h5py, or .npz). The averaging
+(netCDF-3 classic through scipy, HDF5 through h5py, or .npz), inline or
+queued to the background writer (`writer=`). The averaging
 state is not part of the model's restarts (as in the JAX driver);
 `get_restart_payload` / `set_restart_payload` carry it for callers that
 want it.
@@ -51,8 +52,10 @@ class Stream:
 class History:
     """Multi-stream accumulating history writer."""
 
-    def __init__(self, cfg, grid, directory: Optional[str] = None):
+    def __init__(self, cfg, grid, directory: Optional[str] = None,
+                 writer=None):
         self.cfg = cfg
+        self.writer = writer          # io.async_writer.AsyncWriter | None
         self.grid = grid
         self.fields = build_fields(cfg)
         self.dir = directory or cfg.setup.history_dir
@@ -187,7 +190,7 @@ class History:
             payload = buf.value       # netcdf_file closed the buffer
         else:
             raise ValueError(f"unknown history format {fmt!r}")
-        write_bytes(path, payload)
+        write_bytes(path, payload, self.writer)
         return path
 
     def _field_arrays(self, data, st) -> dict:

@@ -11,6 +11,8 @@ written by either package loads into the other.
 Formats: 'npz' (numpy .npz, exact), 'cdf1' (netCDF-3 classic through
 scipy, with lossless casts for the types it lacks) and 'hdf5' (h5py,
 imported at the call). The sharded 'pio' format waits for ROADMAP A8.
+A dump may go through the background writer (`writer=`); the pointer then
+follows its payload onto the disk.
 """
 
 from __future__ import annotations
@@ -116,13 +118,17 @@ def _is_hdf5(path: str) -> bool:
 
 def write_restart(dirpath: str, state: State, calendar: Calendar,
                   pointer_file: str | None = None, *, prefix: str = "iced",
-                  extra: dict | None = None, fmt: str = "npz") -> str:
+                  extra: dict | None = None, fmt: str = "npz",
+                  writer=None) -> str:
     """Dump state to `<dirpath>/<prefix>.<timestamp>.{npz,nc}`; update the
     pointer file. Returns the restart's path.
 
     fmt: 'npz' (exact bytes), 'cdf1' (netCDF-3 classic, the io_netcdf
     ice_restart analogue) or 'hdf5' (netCDF-4/HDF5, deflated, native exact
-    dtypes; needs h5py)."""
+    dtypes; needs h5py). With `writer` (io.async_writer.AsyncWriter) the
+    payload is serialised here and queued; call `writer.flush()` before
+    reading it back. The pointer is written only after the payload is on
+    disk, inline or by the writer's worker."""
     if fmt == "pio":
         raise NotImplementedError(
             "restart_format='pio' (sharded restarts) is not ported yet "
@@ -158,11 +164,8 @@ def write_restart(dirpath: str, state: State, calendar: Calendar,
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         payload = buf.getvalue()
-    write_bytes(fname, payload)
-    if pointer_file:
-        os.makedirs(os.path.dirname(pointer_file) or ".", exist_ok=True)
-        with open(pointer_file, "w") as f:
-            f.write(fname + "\n")
+    write_bytes(fname, payload, writer,
+                (pointer_file, fname + "\n") if pointer_file else None)
     return fname
 
 

@@ -158,11 +158,12 @@ def count_ops(fn) -> int:
 
 
 def count_host_reads(fn) -> int:
-    """The tensor-to-Python conversions (`bool`, `float`, `int`, `.item()`)
-    `fn()` makes: on the card each one waits for the device. The global
-    exit tests of the coupled step make one per Picard pass, per ridging
-    pass and per `rebin` category move."""
-    names = ("__bool__", "__float__", "__int__", "item")
+    """The tensor-to-Python conversions (`bool`, `float`, `int`, `.item()`,
+    `.tolist()`) `fn()` makes: on the card each one waits for the device.
+    The global exit tests of the coupled step make one per Picard pass, per
+    ridging pass and per `rebin` category move; the point probes one per
+    call."""
+    names = ("__bool__", "__float__", "__int__", "item", "tolist")
     saved = {nm: getattr(torch.Tensor, nm) for nm in names}
     count = [0]
 

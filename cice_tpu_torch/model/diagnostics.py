@@ -2,14 +2,16 @@
 (PyTorch port of cice_tpu/model/diagnostics.py; reference
 ice_diagnostics.F90 `runtime_diags`, `check_umax`, the arbud/icebud budget
 tables, and ice_diagnostics_bgc.F90 `bgc_diags`, `hbrine_diags`). All
-results are 0-d tensors on the state's device. `print_points_state` and
-`debug_ice` wait for ROADMAP A7.
+results are 0-d tensors on the state's device, except the point probes
+(`print_points_state`, `debug_ice`), which gather their columns on the
+device and come to the host in one read per call.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import constants as cst
@@ -216,3 +218,69 @@ def check_state(state: State,
             & torch.isfinite(state.uvel).all()
             & torch.isfinite(state.sst).all())
     return {"umax": umax, "unstable": umax > umax_stab, "nonfinite": bad}
+
+
+def probe_points(grid: Grid, latpnt=(90.0, -65.0),
+                 lonpnt=(0.0, -45.0)) -> List[dict]:
+    """The T cells nearest each (latpnt, lonpnt) probe in degrees
+    (reference print_points, ice_diagnostics.F90:30): [{"j", "i", "lat",
+    "lon"}]. Reads the grid's coordinates on the host; `Model` finds the
+    points once."""
+    lat = grid.TLAT.detach().cpu().numpy() * cst.rad_to_deg
+    lon = grid.TLON.detach().cpu().numpy() * cst.rad_to_deg
+    out = []
+    for plat, plon in zip(latpnt, lonpnt):
+        d2 = (lat - plat) ** 2 + (np.mod(lon - plon + 180, 360) - 180) ** 2
+        j, i = np.unravel_index(np.argmin(d2), d2.shape)
+        out.append(dict(j=int(j), i=int(i), lat=float(lat[j, i]),
+                        lon=float(lon[j, i])))
+    return out
+
+
+#: the per-point values of `print_points_state`, in order
+POINT_KEYS = ("aice", "vice", "vsno", "uvel", "vvel", "sst", "Tsfc")
+
+
+def print_points_state(grid: Grid, state: State, latpnt=(90.0, -65.0),
+                       lonpnt=(0.0, -45.0),
+                       points: Optional[List[dict]] = None) -> List[dict]:
+    """Per-point diagnostic probes (reference print_points / print_state,
+    ice_diagnostics.F90:30,115): at each probe point the cell's position
+    and its aice, vice, vsno, uvel, vvel, sst and area-weighted surface
+    temperature. `points` (from `probe_points`) saves finding the cells
+    again. The values are gathered on the device and read once."""
+    pts = points if points is not None else probe_points(grid, latpnt,
+                                                         lonpnt)
+    dev = state.aicen.device
+    jj = torch.tensor([p["j"] for p in pts], device=dev)
+    ii = torch.tensor([p["i"] for p in pts], device=dev)
+    aice = state.aice[jj, ii]
+    tsum = (state.trcrn["Tsfcn"][:, jj, ii] * state.aicen[:, jj, ii]).sum(0)
+    vals = torch.stack([aice, state.vice[jj, ii], state.vsno[jj, ii],
+                        state.uvel[jj, ii], state.vvel[jj, ii],
+                        state.sst[jj, ii],
+                        tsum / torch.clamp(aice, min=1e-11)])
+    rows = vals.to(torch.float64).T.tolist()
+    return [dict(p, **dict(zip(POINT_KEYS, r))) for p, r in zip(pts, rows)]
+
+
+def debug_ice(grid: Grid, state: State, j: int, i: int,
+              stage: str = "") -> dict:
+    """Full column dump at a debug point (reference debug_ice/print_state
+    with the debug_model_{step,i,j} namelist, ice_diagnostics.F90:38-46,
+    CICE_RunMod.F90:186-191): every prognostic variable at (j, i), as
+    nested lists of Python floats. Gathered on the device, read once."""
+    cols = {"aicen": state.aicen[:, j, i], "vicen": state.vicen[:, j, i],
+            "vsnon": state.vsnon[:, j, i], "uvel": state.uvel[j, i],
+            "vvel": state.vvel[j, i]}
+    cols.update({name: arr[..., j, i] for name, arr in state.trcrn.items()})
+    flat = torch.cat([c.reshape(-1).to(torch.float64)
+                      for c in cols.values()]).tolist()
+    out = {"stage": stage, "j": j, "i": i}
+    k = 0
+    for name, c in cols.items():
+        n = c.numel()
+        vals = np.asarray(flat[k:k + n]).reshape(tuple(c.shape))
+        out[name] = float(vals) if c.ndim == 0 else vals.tolist()
+        k += n
+    return out

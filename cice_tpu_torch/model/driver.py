@@ -5,14 +5,16 @@ body of CICE_RunMod.F90 `ice_step`).
 `Model` owns config, grid, static tables, the open forcing datasets
 (`datasets`), forcing, the calendar and the prognostic state on one
 device. `step()` / `run(n)` advance the full coupled step (`model_step`)
-with the calendar, history accumulation and output, the diagnostics and
-aborts at `diagfreq` (each abort writes an early checkpoint first) and
-restart dumps at `dumpfreq`; `runtype='continue'` resumes from the pointer
-file. `run_dynamics(n)` advances only the dynamics-transport-ridging
-supercycle (`step_dyn_transport`) under the data wind stress. Prescribed
-ice, restoring, point probes, the background writer (ROADMAP A7) and
-sharded restarts (A8) are not ported yet; a Config that asks for an
-unported module raises at construction, naming its ROADMAP item.
+with the calendar, prescribed ice before the step and boundary and SST
+restoring after it, history accumulation and output, the diagnostics (the
+point probes among them) and aborts at `diagfreq` (each abort writes an
+early checkpoint first), the `debug_model` column dumps and restart dumps
+at `dumpfreq`, through the background writer with `setup.io_async`;
+`runtype='continue'` resumes from the pointer file. A coupler hands
+`step(forcing=...)` its own Forcing (`model.coupling.CoupledIce`).
+`run_dynamics(n)` advances only the dynamics-transport-ridging supercycle
+(`step_dyn_transport`) under the data wind stress. Sharded restarts wait
+for ROADMAP A8; a Config that asks for them raises at construction.
 """
 
 from __future__ import annotations
@@ -163,20 +165,6 @@ class Model:
             raise NotImplementedError(
                 "restart_format='pio' (sharded restarts) is not ported yet "
                 "(ROADMAP A8: multi-GPU)")
-        if s.io_async:
-            raise NotImplementedError(
-                "the background history/restart writer (setup.io_async) is "
-                "not ported yet (ROADMAP A7: forcing files, coupling and "
-                "I/O)")
-        if s.prescribed_ice or cfg.forcing.restore_ice or \
-                cfg.forcing.restore_ocn:
-            raise NotImplementedError(
-                "prescribed ice and restoring are not ported yet (ROADMAP "
-                "A7)")
-        if s.print_points or s.debug_model:
-            raise NotImplementedError(
-                "print_points and debug_model probes are not ported yet "
-                "(ROADMAP A7)")
         check_ported(cfg)
         # use_leap_years / days_per_year resolve to the calendar type
         # (reference ice_calendar init_calendar consistency checks)
@@ -213,11 +201,33 @@ class Model:
                                        self.forcing.Tf)
         self.timers = Timers().init_standard()
         self.flux = None
-        self.io_writer = None       # the background writer waits for A7
+        self.io_writer = None
+        if s.io_async:
+            from ..io.async_writer import AsyncWriter
+            self.io_writer = AsyncWriter(s.io_nthreads)
         self.history = None
         if enable_history:
             from ..io.history import History
-            self.history = History(cfg, self.grid)
+            self.history = History(cfg, self.grid, writer=self.io_writer)
+        # prescribed ice: the ice_cov dataset, uploaded once
+        self._ice_cov = None
+        if s.prescribed_ice:
+            from .prescribed import load_ice_cov
+            cov = load_ice_cov(cfg)
+            if cov is not None:
+                self._ice_cov = torch.as_tensor(cov, device=device)
+        # boundary restoring: the target is the run's initial state (or
+        # forcing.ice_data_file), captured here as ice_HaloRestore_init does
+        self._restore_target = self._restore_zone = None
+        if cfg.forcing.restore_ice:
+            from .restoring import boundary_zone_weight, make_restore_target
+            self._restore_target = make_restore_target(cfg, self.state)
+            self._restore_zone = boundary_zone_weight(self.grid)
+        # the probe cells of print_points and debug_model, found once
+        self.points = None
+        if s.print_points or s.debug_model:
+            from .diagnostics import probe_points
+            self.points = probe_points(self.grid, s.latpnt, s.lonpnt)
         self.dyn_diags: dict = {}
         self.tchecks: dict = {}
         self.diag_log: list = []
@@ -248,22 +258,42 @@ class Model:
                            sec_of_year=(cal.fyday - 1.0) * cst.secday,
                            datasets=self.datasets)
 
-    def step(self, timer=None) -> State:
-        """One full coupled step: forcing, `model_step`, the calendar and
-        the yearly onset reset, history accumulation and output, every
-        `diagfreq` steps the diagnostics with the freshwater-budget,
-        non-finite-state and transport-check aborts, and the restart dump
+    def step(self, timer=None, forcing=None) -> State:
+        """One full coupled step: forcing (the model's own, or `forcing` as
+        given), prescribed ice, `model_step`, boundary and SST restoring,
+        the calendar and the yearly onset reset, history accumulation and
+        output, every `diagfreq` steps the diagnostics (with the point
+        probes) and the freshwater-budget, non-finite-state and
+        transport-check aborts, the `debug_model` dump and the restart dump
         at `dumpfreq`. `timer` is handed to `model_step`."""
         cfg = self.cfg
-        dt = cfg.setup.dt
+        s = cfg.setup
+        dt = s.dt
         self.timers.start("Total")
         state_pre = self.state
         with self.timers("Forcing"):
-            self.forcing = self._forcing()
+            self.forcing = self._forcing() if forcing is None else forcing
+        fc = self.forcing
+        if s.prescribed_ice:
+            # AMIP-style prescribed concentration (ice_prescribed_mod): the
+            # ITD is reset to the data before the (thermodynamic) step
+            from .prescribed import prescribe_ice_state, prescribed_aice
+            self.state = prescribe_ice_state(
+                cfg, self.grid, self.state,
+                prescribed_aice(self.grid, self.calendar, self._ice_cov),
+                self.static.hin_max)
         with self.timers("TimeLoop"):
             self.state, self.flux = model_step(self.static, self.grid,
-                                               self.state, self.forcing, dt,
+                                               self.state, fc, dt,
                                                timer=timer)
+            if cfg.forcing.restore_ice:
+                from .restoring import restore_ice
+                self.state = restore_ice(cfg, self.grid, self.state,
+                                         self._restore_target, dt,
+                                         zone=self._restore_zone)
+            if cfg.forcing.restore_ocn:
+                from .restoring import restore_sst
+                self.state = restore_sst(cfg, self.state, fc.sst_data, dt)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.tchecks = self.flux.transport_checks
@@ -281,15 +311,31 @@ class Model:
             self.history.accum(self.state, self.flux, self.forcing)
             self.history.maybe_write(self.calendar,
                                      fmt=cfg.setup.history_format)
-        if cfg.setup.diagfreq and \
-                self.calendar.istep % cfg.setup.diagfreq == 0:
-            self.diag_log.append(self._diagnose(state_pre))
-        if self.calendar.is_boundary(cfg.setup.dumpfreq,
-                                     cfg.setup.dumpfreq_n, dt):
+        if s.diagfreq and self.calendar.istep % s.diagfreq == 0:
+            rec = self._diagnose(state_pre)
+            if s.print_points:
+                from .diagnostics import print_points_state
+                rec["points"] = print_points_state(self.grid, self.state,
+                                                   points=self.points)
+            self.diag_log.append(rec)
+        if s.debug_model and self.calendar.istep >= s.debug_model_step:
+            self._debug_dump()
+        if self.calendar.is_boundary(s.dumpfreq, s.dumpfreq_n, dt):
             self.write_restart()
         self.timers.stop("History")
         self.timers.stop("Total")
         return self.state
+
+    def _debug_dump(self):
+        """Print the full column at the debug point (debug_model_i/j, or
+        the first probe point where they are negative)."""
+        from .diagnostics import debug_ice
+        s = self.cfg.setup
+        i, j = s.debug_model_i, s.debug_model_j
+        if i < 0 or j < 0:
+            i, j = self.points[0]["i"], self.points[0]["j"]
+        print(f"debug_model step {self.calendar.istep}:",
+              debug_ice(self.grid, self.state, j, i, stage="post_step"))
 
     def _abort(self, exc: Exception):
         """Write an early checkpoint of the offending state, then raise."""
@@ -317,9 +363,14 @@ class Model:
             pond_lvl=cfg.tracers.tr_pond_lvl)
         rec.update({f"bud_{k}": float(v) for k, v in bud.items()})
         # the water budget closes to ~5e-4 relative (a small snow-ice
-        # bookkeeping term); 1% catches any genuinely lost budget term
+        # bookkeeping term); 1% catches any genuinely lost budget term.
+        # Prescribed ice and restoring change mass with no flux term, so
+        # the residual means nothing there and the abort is off (the
+        # reference skips conservation aborts for prescribed runs too)
         wscale = max(abs(rec["bud_dM"]), abs(rec["bud_water_in"]), 1.0)
-        if abs(rec["bud_water_residual"]) > 1e-2 * wscale:
+        nudged = (cfg.setup.prescribed_ice or cfg.forcing.restore_ice or
+                  cfg.forcing.restore_ocn)
+        if not nudged and abs(rec["bud_water_residual"]) > 1e-2 * wscale:
             self._abort(RuntimeError(
                 f"freshwater budget closure violated at step {istep}: "
                 f"residual {rec['bud_water_residual']:.3e} kg vs budget "
@@ -353,18 +404,24 @@ class Model:
         s = self.cfg.setup
         return write_restart(s.restart_dir, self.state, self.calendar,
                              s.pointer_file, prefix=s.restart_file,
-                             fmt=s.restart_format)
+                             fmt=s.restart_format, writer=self.io_writer)
 
     def flush_io(self) -> int:
-        """Durability barrier for the background writer; every write of
-        this port is synchronous (the writer waits for ROADMAP A7), so
-        there is nothing to wait for."""
-        return 0
+        """Durability barrier of the background writer (nothing to wait for
+        without `setup.io_async`): returns when every queued file is on
+        disk; raises IOError if any write failed."""
+        if self.io_writer is None:
+            return 0
+        errs = self.io_writer.flush()
+        if errs:
+            raise IOError(f"{errs} background history/restart writes "
+                          "failed")
+        return errs
 
     def run(self, nsteps: Optional[int] = None, timer=None) -> State:
         """Advance `nsteps` full coupled steps (default: the run length
         `setup.npt` in `setup.npt_unit`), then write the final restart if
-        `setup.dump_last`."""
+        `setup.dump_last`, and flush the writer."""
         s = self.cfg.setup
         n = nsteps if nsteps is not None else npt_to_steps(
             s.npt, s.npt_unit, s.dt, self.calendar)
