@@ -118,7 +118,21 @@ per source, started together), then:
      gx1pop,evp1d,bigdiag for a day (print_points, conserv_check,
      debug_model), host reads per diagnostics record; where bigdiag's
      transport check aborts on the exact remap's known ice-edge cell, that
-     abort is printed and the probes run without conserv_check.
+     abort is printed and the probes run without conserv_check;
+ 14. runs across ranks on the one card (`multi_rank`): 8 spawned processes
+     joined by gloo (every halo message of a CUDA tile staged through
+     pinned host memory): (a) the wide-halo EVP at gx1pop width on 2x4 and
+     4x2 ranks, each tile through K1, equal to K1 on the whole grid (max
+     abs error 0.0); (b) the C-grid wide solve on gx1pop,gridc's state on
+     2x4 ranks equal to `evp_c_solve`; (c) a tx1 (360x240) tripole solve
+     through K1 tiles on 2x4 ranks equal to the plain `evp_solve` (K1
+     alone refuses the grid); (d) two gx1pop_step steps with
+     evp_algorithm='wide_halo' on 1x2 ranks equal to two steps on one
+     rank; (e) their pio restart resumed on one rank bit for bit; (f) every
+     bfbflag of global_sum on the gx1pop state on 1, 1x2 and 2x1 ranks,
+     'reprosum' identical; K1's launches per rank and per solve, the ms per
+     wide solve beside K1 alone, the bytes staged per halo refresh and the
+     staging time.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -1740,6 +1754,280 @@ def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
         shutil.rmtree(A7_ROOT, ignore_errors=True)
 
 
+RANKS_ROOT = os.path.join(HERE, "cice_tpu_torch", "_build", "smoke_ranks")
+
+
+def _max_abs(got, ref) -> float:
+    """Largest |got - ref| over a list of arrays (inf where a shape or a
+    NaN differs)."""
+    import numpy as np
+    err = 0.0
+    for g, r in zip(got, ref):
+        r = r.detach().cpu().numpy() if hasattr(r, "detach") else r
+        if g.shape != r.shape or not np.array_equal(np.isnan(g),
+                                                    np.isnan(r)):
+            return math.inf
+        d = np.abs(g.astype(np.float64) - r.astype(np.float64))
+        err = max(err, float(np.nanmax(d)) if d.size else 0.0)
+    return err
+
+
+def multi_rank(dev, smi) -> dict:
+    """Phase 14: runs across ranks on the one card. The ranks are spawned
+    processes joined by gloo (cice_tpu_torch.parallel.spawn; a `file://`
+    rendezvous under RANKS_ROOT), each on this card; gloo carries CPU
+    tensors only, so every halo message is staged through pinned host
+    memory, counted. The kernels were built before the spawn.
+
+    (a) evp_solve_wide at gx1pop width (384x320, ndte=120, f32,
+        evp_wide_k=8) on 2x4 and 4x2 ranks, each tile through K1: every
+        output equal to K1 on the whole grid (max abs error 0.0);
+    (b) the C-grid wide solve on gx1pop,gridc's state (after one step) on
+        2x4 ranks against `evp_c_solve` (0.0);
+    (c) a 360x240 tripole solve on the tx1 grid through K1 tiles on 2x4
+        ranks against the plain `evp_solve` on the whole grid (0.0): the
+        fold comes through the exchange, K1 alone refuses the grid;
+    (d) two steps of gx1pop_step() with evp_algorithm='wide_halo' on 1x2
+        ranks, each state leaf equal to two steps on one rank;
+    (e) a pio restart from those 2 ranks, resumed on one rank
+        (runtype='continue') bit for bit;
+    (f) every bfbflag of global_sum on CUDA tensors of the gx1pop state on
+        1, 1x2 and 2x1 ranks: 'reprosum' identical on all three.
+    Prints per rank count K1's launches per rank and per solve, ms per
+    wide solve (host clock) beside K1 alone on the whole grid, the bytes
+    staged per halo refresh and the ms staging took."""
+    import argparse
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from cice_tpu_torch import config as C
+    from cice_tpu_torch.cli import main as cli
+    from cice_tpu_torch.columns.ridging import ice_strength
+    from cice_tpu_torch.core.grid import make_grid
+    from cice_tpu_torch.core.reductions import BFBFLAGS, global_sum
+    from cice_tpu_torch.dynamics import evp_c
+    from cice_tpu_torch.dynamics.common import evp_params
+    from cice_tpu_torch.dynamics.evp import evp_solve
+    from cice_tpu_torch.kernels import evp as kevp
+    from cice_tpu_torch.measure import evp_problem
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.state import state_leaves
+    from cice_tpu_torch.parallel import spawn
+
+    shutil.rmtree(RANKS_ROOT, ignore_errors=True)
+    os.makedirs(RANKS_ROOT)
+    root = lambda *p: os.path.join(RANKS_ROOT, *p)
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    # (a) the gx1pop EVP problem of phase 1 and K1 on the whole grid
+    cfg = C.gx1pop_dyn()
+    grid = make_grid(cfg, dev)
+    args, kw = evp_problem(grid, cfg.dynamics, cfg.setup.dt, dev)
+    k1_whole = [t.clone() for t in kevp.evp_solve_fused(*args, **kw)]
+    k1_ms = host_ms(lambda: kevp.evp_solve_fused(*args, **kw), 5)
+    gx1 = spawn.save(spawn.b_problem_to_numpy(*args, **kw), root("gx1.pkl"))
+    # (b) gx1pop,gridc after one step
+    mc = Model(C.gx1pop_step().with_overrides(**{"grid.grid_ice": "C"}),
+               device=dev)
+    mc.step()
+    st, fc, d = mc.state, mc.forcing, mc.cfg.dynamics
+    dt = mc.cfg.setup.dt
+    prepc = evp_c.dyn_prep_c(mc.grid, d, dt, aice=st.aice, vice=st.vice,
+                             vsno=st.vsno, uvelE=st.uvelE, vvelN=st.vvelN,
+                             strairxT=fc.strax, strairyT=fc.stray,
+                             uocn_T=fc.uocn, vocn_T=fc.vocn)
+    cargs = (mc.grid, evp_params(d, dt), prepc,
+             ice_strength(st.aicen, st.vicen, st.aice, st.vice, d),
+             st.stressp[0], st.stressm[0], st.stress12[0])
+    fin, uU, vU = evp_c.evp_c_solve(*cargs)
+    c_ref = list(fin) + [uU, vU]
+    c_plain_ms = host_ms(lambda: evp_c.evp_c_solve(*cargs), 1)
+    gx1c = spawn.save(spawn.c_problem_to_numpy(*cargs), root("gx1c.pkl"))
+    del mc
+    # (c) the tx1 tripole grid (360x240)
+    tcfg = cli.build_config(argparse.Namespace(opts="tx1pop", set=None))
+    tgrid = make_grid(tcfg, dev)
+    if tgrid.shape != (240, 360) or not tgrid.bc.tripole:
+        fail(f"tx1: expected a 240x360 tripole grid, got {tgrid.shape} "
+             f"{tgrid.bc}")
+    targs, tkw = evp_problem(tgrid, tcfg.dynamics, tcfg.setup.dt, dev,
+                             ndte=120)
+    t_ref = evp_solve(*targs, **tkw)
+    t_plain_ms = host_ms(lambda: evp_solve(*targs, **tkw), 1)
+    tx1 = spawn.save(spawn.b_problem_to_numpy(*targs, **tkw),
+                     root("tx1.pkl"))
+    # (d) two steps of gx1pop_step on one rank
+    scfg = C.gx1pop_step().with_overrides(**{
+        "setup.restart_format": "pio",
+        "setup.restart_dir": root("restart"),
+        "setup.pointer_file": root("restart", "ice.restart_file")})
+    one = Model(scfg, device=dev)
+    one.step()
+    one.step()
+    one_leaves = [x.detach().cpu().numpy() for x in state_leaves(one.state)]
+    wcfg = scfg.with_overrides(**{"dynamics.evp_algorithm": "wide_halo",
+                                  "dynamics.evp_wide_k": 8})
+    # (f) the sums on one rank
+    s = one.state
+    fields = {"aice": s.aice, "vice": s.vice, "vsno": s.vsno,
+              "aicen": s.aicen, "uvel": s.uvel, "sst": s.sst}
+    sums1 = {n: {m: global_sum(x, bfbflag=m).item() for m in BFBFLAGS}
+             for n, x in fields.items()}
+    fpath = spawn.save({n: x.detach().cpu().numpy()
+                        for n, x in fields.items()}, root("fields.pkl"))
+    del one
+    torch.cuda.empty_cache()
+
+    evp = dict(k_fuse=8, device="cuda", repeat=3)
+    jobs = [("evp_b", dict(problem=gx1, shape=(2, 4), **evp), 8),
+            ("evp_b", dict(problem=gx1, shape=(4, 2), **evp), 8),
+            ("evp_c", dict(problem=gx1c, shape=(2, 4), k_fuse=8,
+                           device="cuda"), 8),
+            ("evp_b", dict(problem=tx1, shape=(2, 4), **evp), 8),
+            ("model_steps", dict(cfg=wcfg, nsteps=2, shape=(1, 2),
+                                 device="cuda", write_restart=True), 2),
+            ("global_sums", dict(fields=fpath, shape=(1, 2),
+                                 modes=BFBFLAGS, device="cuda"), 2),
+            ("global_sums", dict(fields=fpath, shape=(2, 1),
+                                 modes=BFBFLAGS, device="cuda"), 2)]
+    t0 = time.perf_counter()
+    res = spawn.launch(jobs, 8, RANKS_ROOT, timeout=600.0)
+    spawn_s = time.perf_counter() - t0
+    print(f"phase 14: 8 ranks (gloo, one card) ran {len(jobs)} jobs in "
+          f"{spawn_s:.1f} s (host clock, start-up included) on {smi}")
+
+    def agree(r, what):
+        got = [x for x in r if x is not None]
+        if len({x["digest"] for x in got}) != 1:
+            fail(f"phase 14 {what}: the ranks' results differ")
+        return got[0]["out"]
+
+    out = {"k1_whole_ms": k1_ms, "spawn_s": spawn_s, "runs": {}}
+    labels = {0: "gx1pop 2x4", 1: "gx1pop 4x2", 3: "tx1 tripole 2x4"}
+    for j, ref in ((0, k1_whole), (1, k1_whole), (3, t_ref)):
+        r, label = res[j], labels[j]
+        err = _max_abs(agree(r, label), ref)
+        st = [x["stats"] for x in r]
+        ms = [1e3 * x["seconds"] for x in st]
+        per_ref = [x["staged_bytes"] / x["refreshes"] for x in st]
+        stg = [1e3 * x["staged_seconds"] for x in st]
+        launches = [x["k1_launches"] for x in st]
+        rec = dict(max_abs_err=err, k1_launches_per_rank=launches,
+                   k1_launches_per_solve=sum(launches),
+                   persistent=[x["persistent"] for x in st],
+                   stream=[x["stream"] for x in st],
+                   k=st[0]["k"], halo=st[0]["halo"],
+                   ms_per_solve=ms, staged_bytes_per_refresh=per_ref,
+                   refreshes=st[0]["refreshes"], staging_ms=stg)
+        out["runs"][label] = rec
+        ref_what = "K1 on the whole grid" if j < 3 else \
+            "the plain evp_solve on the whole grid"
+        print(f"phase 14 ({'c' if j == 3 else 'a'}) {label}: max abs error "
+              f"{err} against {ref_what} (all nine outputs); K1 launches "
+              f"per rank {launches} ({sum(launches)} per solve; the "
+              f"rank's launches since it started, by route: persistent "
+              f"{rec['persistent']}, stream {rec['stream']}; "
+              f"k={rec['k']}, halo {rec['halo']}, {rec['refreshes']} halo "
+              f"refreshes); "
+              f"ms per wide solve (host clock, third of 3) "
+              f"{min(ms):.3f}-{max(ms):.3f} beside K1 alone on the whole "
+              f"grid {k1_ms:.3f}" + (f", plain {t_plain_ms:.3f}"
+                                     if j == 3 else "") +
+              f"; bytes staged per refresh {min(per_ref):.0f}-"
+              f"{max(per_ref):.0f}, staging ms per solve "
+              f"{min(stg):.3f}-{max(stg):.3f}; on {smi}")
+        if err != 0.0:
+            fail(f"phase 14 {label}: the wide solve leaves its reference "
+                 f"by {err}")
+        if min(launches) < 1:
+            fail(f"phase 14 {label}: K1 was not launched on every rank: "
+                 f"{launches}")
+    cerr = _max_abs(agree(res[2], "gx1pop,gridc 2x4"), c_ref)
+    cst = [x["stats"] for x in res[2]]
+    out["runs"]["gx1pop,gridc 2x4"] = dict(
+        max_abs_err=cerr, ms_per_solve=[1e3 * x["seconds"] for x in cst],
+        plain_ms=c_plain_ms)
+    print(f"phase 14 (b) gx1pop,gridc 2x4: max abs error {cerr} against "
+          f"evp_c_solve (5 planes + uvelU, vvelU); ms per wide solve "
+          f"{min(1e3 * x['seconds'] for x in cst):.1f}-"
+          f"{max(1e3 * x['seconds'] for x in cst):.1f} beside the plain "
+          f"solve {c_plain_ms:.1f} (host clock) on {smi}")
+    if cerr != 0.0:
+        fail(f"phase 14 (b): the C-grid wide solve leaves evp_c_solve by "
+             f"{cerr}")
+
+    # (d) two wide steps on 1x2 ranks against one rank
+    r = res[4]
+    got = agree(r, "gx1pop_step wide 1x2")
+    derr = _max_abs(got, one_leaves)
+    st = [x["stats"] for x in r[:2]]
+    out["runs"]["gx1pop_step wide 1x2"] = dict(
+        max_abs_err=derr, k1_launches_per_rank=[x["k1_launches"] for x in st],
+        ms_per_step=[1e3 * x["seconds_per_step"] for x in st],
+        staged_bytes=[x["staged_bytes"] for x in st],
+        staging_ms=[1e3 * x["staged_seconds"] for x in st])
+    print(f"phase 14 (d) gx1pop_step, wide_halo on 1x2 ranks, 2 steps: "
+          f"max abs error {derr} over {len(got)} state leaves against 2 "
+          f"steps on one rank; K1 launches per rank "
+          f"{[x['k1_launches'] for x in st]}; ms per step "
+          f"{[round(1e3 * x['seconds_per_step'], 3) for x in st]}; bytes "
+          f"staged {[x['staged_bytes'] for x in st]} in "
+          f"{[round(1e3 * x['staged_seconds'], 3) for x in st]} ms "
+          f"(host clock) on {smi}")
+    if derr != 0.0 or min(x["k1_launches"] for x in st) < 1:
+        fail(f"phase 14 (d): wide steps leave the one-rank steps by {derr} "
+             "or K1 was not launched on every rank")
+    # (e) resume the 2 ranks' pio restart on one rank
+    path = st[0]["restart"]
+    with open(scfg.setup.pointer_file) as f:
+        if f.read().strip() != path:
+            fail(f"phase 14 (e): the pointer does not name {path}")
+    resumed = Model(scfg.with_overrides(**{"setup.runtype": "continue"}),
+                    device=dev)
+    eerr = _max_abs(one_leaves, state_leaves(resumed.state))
+    nfiles = len(os.listdir(path))
+    out["pio"] = dict(max_abs_err=eerr, files=nfiles,
+                      istep=resumed.calendar.istep)
+    print(f"phase 14 (e) pio restart from 1x2 ranks ({nfiles} files in "
+          f"{os.path.basename(path)}) resumed on one rank at step "
+          f"{resumed.calendar.istep}: max abs error {eerr}")
+    if eerr != 0.0 or resumed.calendar.istep != 2:
+        fail("phase 14 (e): the resumed state is not the written one")
+    del resumed
+    # (f) the sums
+    bad = []
+    for n, one_rank in sums1.items():
+        for label, r in (("1x2", res[5]), ("2x1", res[6])):
+            for rank in r[:2]:
+                if rank[n]["reprosum"] != one_rank["reprosum"]:
+                    bad.append((n, label, rank[n]["reprosum"],
+                                one_rank["reprosum"]))
+    out["sums"] = dict(one=sums1, r1x2=res[5][0], r2x1=res[6][0])
+    for n, one_rank in sums1.items():
+        spread = max(abs(r[0][n][m] - one_rank[m]) /
+                     max(abs(one_rank[m]), 1e-30)
+                     for r in (res[5], res[6]) for m in BFBFLAGS)
+        print(f"phase 14 (f) global_sum of {n} (gx1pop state, CUDA "
+              f"tensors): reprosum {one_rank['reprosum']!r} on 1 rank, "
+              f"{res[5][0][n]['reprosum']!r} on 1x2, "
+              f"{res[6][0][n]['reprosum']!r} on 2x1; every bfbflag "
+              f"within {spread:.2e} (relative) of its 1-rank value")
+    if bad:
+        fail(f"phase 14 (f): reprosum differs across rank counts: {bad}")
+    shutil.rmtree(RANKS_ROOT, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cice_tpu_torch", "csrc")):
         print("chip_smoke: the cice_tpu_torch package is not beside this "
@@ -2143,6 +2431,8 @@ def main() -> int:
     bgc = biogeochemistry(dev, smi, reset_counters, read_counters)
     # ---- coupling and I/O -----------------------------------------------
     a7 = coupling_and_io(dev, smi, reset_counters, read_counters)
+    # ---- runs across ranks on the one card ------------------------------
+    ranks = multi_rank(dev, smi)
     on_a7 = {k: {p: v[k] for p, v in a7["launches"].items()}
              for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
     on_base = {k: {r: base[r]["launches"][k]
@@ -2187,7 +2477,13 @@ def main() -> int:
                                                      "Mptsub_s")}
                                   for r in a7["perf"]["rows"]],
                          "stream_768x640_max_abs_err":
-                             a7["perf"]["stream_max_abs_err"]}},
+                             a7["perf"]["stream_max_abs_err"]},
+         "multi_rank": {
+             label: {k: v for k, v in run.items()
+                     if k in ("max_abs_err", "k1_launches_per_rank",
+                              "k1_launches_per_solve", "ms_per_solve")}
+             for label, run in ranks["runs"].items()
+             if "k1_launches_per_rank" in run}},
         {"name": "transport_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/transport_fused.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:653",
@@ -2257,7 +2553,8 @@ def main() -> int:
                        freshwater_residual=wres, ridge_passes=rdg["npass"],
                        transport_checks=tc, restart_history=rh,
                        baseline=base, cgrid=cgrid, columns=cols,
-                       biogeochemistry=bgc, coupling_io=a7), f,
+                       biogeochemistry=bgc, coupling_io=a7,
+                       multi_rank=ranks), f,
                   indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ runs, case directories, single tests, suites, the EVP performance sweep,
 the statistical QC comparison and plots.
 
     python -m cice_tpu_torch.cli run   [--opts a,b] [--set k=v ...] [--steps N]
+        [--profile DIR]
     python -m cice_tpu_torch.cli case  --dir DIR [--opts a,b] [--set k=v ...]
     python -m cice_tpu_torch.cli test  --type smoke|restart|baseline \
         [--opts a,b] [--set k=v ...] [--bgen DIR] [--bcmp DIR]
@@ -16,10 +17,17 @@ the statistical QC comparison and plots.
 sets and suites are the JAX package's tables (the reference's set_nml.*
 fragments and tests/*.ts); "{FIX}" resolves to the port's fixture root
 ($CICE_TPU_TORCH_FIXTURES), where the gx3/gx1/tx1 baseline fixtures are
-written on first use. What waits for the multi-GPU slice (ROADMAP A8:
-`test --type decomp`, the `pio` restarts of `iopio`, `perf --mesh` above
-1) raises NotImplementedError naming it; a suite counts such a row as
-failed and goes on.
+written on first use; `python -m cice_tpu_torch` is the same CLI. What
+needs the state sharded across ranks (ROADMAP A8: `test --type decomp`,
+`perf --mesh` above 1) raises NotImplementedError naming it; a suite
+counts such a row as failed and goes on. A run of one process has no
+mesh: `evpwide` then runs the one-program EVP solve and `iopio` writes
+its restarts as one shard per array, as the JAX package does on one
+device.
+
+`run --profile DIR` traces the time loop with torch.profiler (CPU, and
+CUDA where the model runs on the card) and writes a Chrome trace into
+DIR.
 
 `test --type baseline` runs the full length of an option set (gx3pop,
 gx1pop, tx1pop) with history, archives {"final", "series", "timers"} as
@@ -452,8 +460,21 @@ def cmd_run(args):
     from ..model.driver import Model
     m = Model(build_config(args), device=args.device,
               enable_history=args.history)
+    n = args.steps if args.steps else None
     t0 = time.time()
-    m.run(args.steps if args.steps else None)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if m.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            m.run(n)
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, "run.pt.trace.json")
+        prof.export_chrome_trace(trace)
+        print(f"profile: {trace}")
+    else:
+        m.run(n)
     wall = time.time() - t0
     print(json.dumps({"istep": m.calendar.istep, "wall_s": round(wall, 2),
                       "timers": {k: round(v, 2) for k, v in m.timers.items()},
@@ -612,8 +633,8 @@ def _default_test_cfg(args, cfg):
 def cmd_test(args):
     if args.type == "decomp":
         raise NotImplementedError(
-            "test --type decomp compares runs across a device mesh "
-            "(ROADMAP A8: multi-GPU)")
+            "test --type decomp compares whole steps with the state sharded "
+            "across ranks (ROADMAP A8: multi-GPU, third part)")
     cfg = _default_test_cfg(args, build_config(args))
     t0 = time.time()
     label = (args.opts or "base").replace(",", "+")
@@ -769,6 +790,10 @@ def main(argv=None):
     common(p_run)
     p_run.add_argument("--steps", type=int, default=None)
     p_run.add_argument("--history", action="store_true")
+    p_run.add_argument("--profile", metavar="DIR", default=None,
+                       help="write a torch.profiler trace of the time loop "
+                            "to DIR (Chrome trace; chrome://tracing or "
+                            "perfetto)")
     p_run.set_defaults(fn=cmd_run)
 
     p_case = sub.add_parser("case", help="create a case directory")

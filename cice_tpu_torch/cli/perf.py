@@ -13,8 +13,9 @@ the axes are
 Each row times the B-grid EVP solve (ndte subcycles) through K1
 (`kernels.evp.evp_solve_fused`: on the card the fused kernel, whose route,
 `persistent` or `stream`, the row names; on the CPU its plain version) and
-prints one JSON line. Scaling beyond one card waits for ROADMAP A8: a
-device count above 1 raises, and nothing switches to CPU devices.
+prints one JSON line. Scaling beyond one card waits for the third part of
+ROADMAP A8 (the state sharded across ranks): a device count above 1
+raises, and nothing switches to CPU devices.
 """
 
 from __future__ import annotations
@@ -98,8 +99,9 @@ def run_perf(sizes=((192, 160), (384, 320), (768, 640)), ndte=120,
     1 in `mesh_devices` raises NotImplementedError (ROADMAP A8)."""
     if max(mesh_devices) > 1:
         raise NotImplementedError(
-            f"perf across {max(mesh_devices)} devices needs the multi-GPU "
-            "EVP (ROADMAP A8: multi-GPU); run with --mesh 1")
+            f"perf across {max(mesh_devices)} devices times the whole step "
+            "with the state sharded across ranks (ROADMAP A8: multi-GPU, "
+            "third part); run with --mesh 1")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("perf on 'cuda' needs a CUDA device; pass "
                            "device='cpu' for the plain version on the CPU")

@@ -9,10 +9,10 @@ are the JAX package's: leaves `leaf_0 ... leaf_N` in `model.state
 written by either package loads into the other.
 
 Formats: 'npz' (numpy .npz, exact), 'cdf1' (netCDF-3 classic through
-scipy, with lossless casts for the types it lacks) and 'hdf5' (h5py,
-imported at the call). The sharded 'pio' format waits for ROADMAP A8.
-A dump may go through the background writer (`writer=`); the pointer then
-follows its payload onto the disk.
+scipy, with lossless casts for the types it lacks), 'hdf5' (h5py,
+imported at the call) and 'pio' (a directory of per-rank shards,
+io/pio.py). A dump may go through the background writer (`writer=`); the
+pointer then follows its payload onto the disk.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ _NC3_CAST = {np.dtype(np.bool_): np.dtype(np.int8),
              np.dtype(np.uint8): np.dtype(np.int8),
              np.dtype(np.uint32): np.dtype(np.int32)}
 
-FORMATS = ("npz", "cdf1", "hdf5")
+FORMATS = ("npz", "cdf1", "hdf5", "pio")
 
 
 def _write_restart_cdf1(fileobj, arrays: dict, meta: dict) -> None:
@@ -119,20 +119,23 @@ def _is_hdf5(path: str) -> bool:
 def write_restart(dirpath: str, state: State, calendar: Calendar,
                   pointer_file: str | None = None, *, prefix: str = "iced",
                   extra: dict | None = None, fmt: str = "npz",
-                  writer=None) -> str:
+                  writer=None, mesh=None) -> str:
     """Dump state to `<dirpath>/<prefix>.<timestamp>.{npz,nc}`; update the
     pointer file. Returns the restart's path.
 
     fmt: 'npz' (exact bytes), 'cdf1' (netCDF-3 classic, the io_netcdf
     ice_restart analogue) or 'hdf5' (netCDF-4/HDF5, deflated, native exact
-    dtypes; needs h5py). With `writer` (io.async_writer.AsyncWriter) the
-    payload is serialised here and queued; call `writer.flush()` before
-    reading it back. The pointer is written only after the payload is on
-    disk, inline or by the writer's worker."""
+    dtypes; needs h5py) or 'pio' (io/pio.py: each rank of `mesh` writes
+    its tiles; returns the directory). With `writer`
+    (io.async_writer.AsyncWriter) the payload is serialised here and
+    queued; call `writer.flush()` before reading it back. The pointer is
+    written only after the payload is on disk, inline or by the writer's
+    worker."""
     if fmt == "pio":
-        raise NotImplementedError(
-            "restart_format='pio' (sharded restarts) is not ported yet "
-            "(ROADMAP A8: multi-GPU)")
+        from .pio import write_restart_sharded
+        return write_restart_sharded(dirpath, state, calendar, pointer_file,
+                                     prefix=prefix, writer=writer, mesh=mesh,
+                                     extra=extra)
     if fmt not in FORMATS:
         raise ValueError(f"unknown restart format {fmt!r}; one of {FORMATS}")
     os.makedirs(dirpath, exist_ok=True)
@@ -171,13 +174,18 @@ def write_restart(dirpath: str, state: State, calendar: Calendar,
 
 def read_restart(path_or_pointer: str,
                  template: State) -> Tuple[State, Calendar]:
-    """Load a restart (.npz or .nc, or the pointer file naming one).
-    `template` gives the tracers, and each leaf's shape, dtype and device:
-    every leaf is put on the template's device in the template's dtype."""
+    """Load a restart (.npz, .nc or a 'pio' directory, or the pointer file
+    naming one). `template` gives the tracers, and each leaf's shape,
+    dtype and device: every leaf is put on the template's device in the
+    template's dtype."""
     path = path_or_pointer
-    if not (path.endswith(".npz") or path.endswith(".nc")):
+    if not (path.endswith(".npz") or path.endswith(".nc")
+            or os.path.isdir(path)):
         with open(path_or_pointer) as f:
             path = f.read().strip()
+    if os.path.isdir(path):
+        from .pio import read_restart_sharded
+        return read_restart_sharded(path, template)
     if path.endswith(".nc"):
         # cdf1 and hdf5 share the suffix: dispatch on the HDF5 magic bytes
         arrays, meta = (_read_restart_h5(path) if _is_hdf5(path)

@@ -155,12 +155,14 @@ def _input_planes(grid: Grid, prep: DynPrep, strength, DminTarea, uocn, vocn):
 
 def evp_solve_cuda(grid: Grid, p: EvpParams, prep: DynPrep, strength,
                    stressp, stressm, stress12, *, uocn, vocn, route=None,
-                   tile=None):
+                   tile=None, DminTarea=None):
     """The whole solve in CUDA; returns the (18, ny, nx) output planes
     (u, v, stressp, stressm, stress12, strintx, strinty, taubx, tauby).
 
     route, tile: None lets `choose_route` pick from the grid and the card;
-    a test or a measurement may name them."""
+    a test or a measurement may name them. DminTarea: the plane
+    deltaminEVP * tarea where the caller has it (the wide-halo EVP's
+    tiles, whose grid carries no tarea); by default from `grid.tarea`."""
     global launches, persistent_launches, stream_launches
     if grid.bc.tripole or grid.bc.y_cyclic:
         raise NotImplementedError(
@@ -183,7 +185,8 @@ def evp_solve_cuda(grid: Grid, p: EvpParams, prep: DynPrep, strength,
         raise ValueError("fused EVP kernel: strength must be a CUDA tensor "
                          "of the grid's shape")
     ndte = int(p.ndte)
-    DminTarea = p.deltaminEVP * grid.tarea
+    if DminTarea is None:
+        DminTarea = p.deltaminEVP * grid.tarea
     # temporaries may be freed before the kernels run: the caching
     # allocator reuses their memory only for later work on this same
     # stream, which the kernels precede

@@ -13,8 +13,14 @@ at `dumpfreq`, through the background writer with `setup.io_async`;
 `runtype='continue'` resumes from the pointer file. A coupler hands
 `step(forcing=...)` its own Forcing (`model.coupling.CoupledIce`).
 `run_dynamics(n)` advances only the dynamics-transport-ridging supercycle
-(`step_dyn_transport`) under the data wind stress. Sharded restarts wait
-for ROADMAP A8; a Config that asks for them raises at construction.
+(`step_dyn_transport`) under the data wind stress.
+
+Across ranks (`mesh=`, a parallel.mesh.Mesh over an initialised process
+group) every rank holds the whole state and steps it; the EVP solve of
+`evp_algorithm='wide_halo'` is split into the ranks' tiles
+(parallel/evp_wide.py), and a 'pio' restart is written tile by tile
+(io/pio.py). Without a mesh 'wide_halo' runs the one-program solve, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -152,19 +158,15 @@ def set_state_var(cfg, grid: Grid, state: State, Tf) -> State:
 
 class Model:
     """Standalone model instance on one device (cice_init + CICE_Run
-    equivalents)."""
+    equivalents); with `mesh`, one rank of a run across ranks."""
 
     def __init__(self, cfg, grid: Optional[Grid] = None, device="cuda",
-                 enable_history: bool = False):
+                 enable_history: bool = False, mesh=None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Model(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
         s = cfg.setup
-        if s.restart_format == "pio":
-            raise NotImplementedError(
-                "restart_format='pio' (sharded restarts) is not ported yet "
-                "(ROADMAP A8: multi-GPU)")
         check_ported(cfg)
         # use_leap_years / days_per_year resolve to the calendar type
         # (reference ice_calendar init_calendar consistency checks)
@@ -181,8 +183,9 @@ class Model:
             day=s.day_init, sec=s.sec_init, year_init=s.year_init)
         self.cfg = cfg
         self.device = device
+        self.mesh = mesh
         self.grid = grid if grid is not None else make_grid(cfg, device)
-        self.static = ModelStatic.build(cfg)
+        self.static = ModelStatic.build(cfg, mesh=mesh)
         # the open forcing datasets, by stream (get_forcing's `datasets`)
         self.datasets: dict = {}
         self.forcing = zeros_forcing(self.grid.shape, cfg.np_dtype, device)
@@ -404,7 +407,8 @@ class Model:
         s = self.cfg.setup
         return write_restart(s.restart_dir, self.state, self.calendar,
                              s.pointer_file, prefix=s.restart_file,
-                             fmt=s.restart_format, writer=self.io_writer)
+                             fmt=s.restart_format, writer=self.io_writer,
+                             mesh=self.mesh)
 
     def flush_io(self) -> int:
         """Durability barrier of the background writer (nothing to wait for

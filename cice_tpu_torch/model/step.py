@@ -5,9 +5,10 @@ port of cice_tpu/model/step.py; reference ice_step_mod.F90 `step_therm1`:224,
 
 Each phase is a dense tensor transformation over the global (ncat, ny, nx)
 state. `model_step` is one full step; `step_dyn_transport` is its ndtd
-dynamics/transport/ridging supercycle. Options whose modules are not ported
-raise NotImplementedError naming their ROADMAP item (only the multi-GPU
-EVP now).
+dynamics/transport/ridging supercycle. Every option is ported; across
+ranks (`ModelStatic.mesh`) the EVP solve of evp_algorithm='wide_halo' is
+split into the ranks' tiles, and the rest of the step runs whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -83,9 +84,8 @@ ADVECTIONS = ("remap", "none") + tuple(ADVECT)
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError for every option of the full step whose
-    module is not ported, naming the ROADMAP item that will port it, and
-    ValueError for the combinations the port refuses.
+    """Raise ValueError for the combinations of options the port
+    refuses (every option of the full step is ported).
 
     Two configurations on which the JAX package fails are refused: z
     tracers without the brine tracer (their transport parent `fbri` is not
@@ -122,25 +122,24 @@ def check_ported(cfg) -> None:
                 raise ValueError(
                     f"zbgc.{f.name}={v!r}: the mixed-layer concentrations "
                     "must be numbers; no BGC climatology reader exists")
-    if d.evp_algorithm == "wide_halo":
-        raise NotImplementedError(
-            "evp_algorithm='wide_halo' is not ported yet (ROADMAP A8: "
-            "multi-GPU evp_wide over torch.distributed)")
 
 
 @dataclass(frozen=True)
 class ModelStatic:
-    """Per-run constants."""
+    """Per-run constants; `mesh` (parallel.mesh.Mesh) tiles the EVP solve
+    of evp_algorithm='wide_halo' across ranks."""
     cfg: object
     hin_max: Tuple[float, ...]
     registry: tuple
+    mesh: object = None
 
     @classmethod
-    def build(cls, cfg):
+    def build(cls, cfg, mesh=None):
         hin_max = tuple(itd_mod.category_bounds(
             cfg.domain.ncat, cfg.grid.kcatbound, cfg.domain.nilyr,
             cfg.thermo.kitd))
-        return cls(cfg=cfg, hin_max=hin_max, registry=tracer_registry(cfg))
+        return cls(cfg=cfg, hin_max=hin_max, registry=tracer_registry(cfg),
+                   mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -548,10 +547,11 @@ def _en_stress_splits(prepc, extra, uvelE, vvelE, uvelN, vvelN):
 
 
 def _step_dyn_c(cfg, grid: Grid, state: State, fc: Forcing, strairx_T,
-                strairy_T, dt: float, p, strength):
+                strairy_T, dt: float, p, strength, mesh=None):
     """The C and CD grids' EVP (kdyn=1): face velocities, the stress state
     in slot 0 (T points) and slot 1 (U points, CD only) of the 4-corner
-    arrays, the U-point exports and the native E/N planes."""
+    arrays, the U-point exports and the native E/N planes. On the C grid
+    evp_algorithm='wide_halo' runs the wide-halo solve on `mesh`."""
     d = cfg.dynamics
     prepc = evp_c.dyn_prep_c(grid, d, dt, aice=state.aice, vice=state.vice,
                              vsno=state.vsno, uvelE=state.uvelE,
@@ -580,9 +580,17 @@ def _step_dyn_c(cfg, grid: Grid, state: State, fc: Forcing, strairx_T,
         faces = dict(vvelE=vvelE, uvelN=uvelN)
     else:
         extra = None
-        fin, uU, vU = evp_c.evp_c_solve(grid, p, prepc, strength,
-                                        state.stressp[0], state.stressm[0],
-                                        state.stress12[0])
+        if d.evp_algorithm == "wide_halo":
+            from ..parallel.evp_wide import evp_c_solve_wide
+            fin, uU, vU = evp_c_solve_wide(
+                grid, p, prepc, strength, state.stressp[0],
+                state.stressm[0], state.stress12[0], mesh=mesh,
+                k_fuse=d.evp_wide_k)
+        else:
+            fin, uU, vU = evp_c.evp_c_solve(grid, p, prepc, strength,
+                                            state.stressp[0],
+                                            state.stressm[0],
+                                            state.stress12[0])
         slots = {"stressp": (fin.stresspT,), "stressm": (fin.stressmT,),
                  "stress12": (fin.stress12U,)}
         vvelE = grid_average_X2Y("S", fin.vvelN, "N", "E", grid)
@@ -637,24 +645,23 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     package's order of dispatch: on a C or CD grid, kdyn=1 runs the
     C-grid EVP (dynamics/evp_c.py); then on the B grid kdyn=3 the implicit
     VP solver, kdyn=2 EAP, and kdyn=1 the EVP algorithm. `evp_algorithm`
-    chooses among B-grid solvers only: 'fused_pallas' runs the fused CUDA
-    EVP kernel (kernels/evp.py; its plain version on CPU tensors),
-    'standard_2d' the plain PyTorch loop; on a C grid both run
-    `evp_c_solve`, as in the JAX package (no kernel computes the C-grid
-    EVP, so this is not a fallback)."""
+    chooses the EVP solver: 'fused_pallas' runs the fused CUDA EVP kernel
+    (kernels/evp.py; its plain version on CPU tensors), 'standard_2d' the
+    plain PyTorch loop, and 'wide_halo' the wide-halo solve across the
+    ranks of `ms.mesh` (parallel/evp_wide.py; without a mesh the plain
+    loop, as in the JAX package). On a C grid 'wide_halo' runs the C-grid
+    wide-halo solve and the others `evp_c_solve`, as in the JAX package
+    (no kernel computes the C-grid EVP, so this is not a fallback); the
+    CD grid always runs `evp_cd_solve`."""
     cfg = ms.cfg
     d = cfg.dynamics
-    if d.evp_algorithm == "wide_halo":
-        raise NotImplementedError(
-            "evp_algorithm='wide_halo' is not ported yet (ROADMAP: "
-            "multi-GPU evp_wide over torch.distributed)")
     p = evp_params(d, dt)
     strength = ice_strength(state.aicen, state.vicen, state.aice, state.vice,
                             d)
     if cfg.grid.grid_ice in ("C", "CD"):
         check_ported(cfg)    # EAP and VP are B-grid solvers
         return _step_dyn_c(cfg, grid, state, fc, strairx_T, strairy_T, dt,
-                           p, strength)
+                           p, strength, mesh=ms.mesh)
     prep, uocnU, vocnU = b_grid_prep(cfg, grid, state, fc, strairx_T,
                                      strairy_T, dt)
 
@@ -670,14 +677,19 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                                   vocn=vocnU, a11=state.a11, a12=state.a12)
         state = state.replace(a11=a11, a12=a12)
     else:
+        kw = {}
         if d.evp_algorithm == "fused_pallas":
             from ..kernels.evp import evp_solve_fused
             solve = evp_solve_fused
+        elif d.evp_algorithm == "wide_halo":
+            from ..parallel.evp_wide import evp_solve_wide
+            solve = evp_solve_wide
+            kw = dict(mesh=ms.mesh, k_fuse=d.evp_wide_k)
         else:
             solve = evp_solve
         u, v, sp, sm, s12, strintx, strinty, taubx, tauby = solve(
             grid, p, prep, strength, state.stressp, state.stressm,
-            state.stress12, uocn=uocnU, vocn=vocnU)
+            state.stress12, uocn=uocnU, vocn=vocnU, **kw)
 
     strocnx, strocny = evp_ocean_stress(prep, u, v, uocnU, vocnU)
     divu, shear, Delta = deformations_B(grid, u, v, p, dt)

@@ -5,7 +5,9 @@ the unknown-option message, a smoke test and a restart test on the CPU,
 and the commands of the coupling and I/O slice: case, suite (the JAX
 package's table; rows that need ROADMAP A8 fail and the suite exits 1),
 perf (on the CPU; a mesh above 1 raises naming A8), qc against the JAX
-package's on the same arrays and history files, and the plots."""
+package's on the same arrays and history files, and the plots; `python -m
+cice_tpu_torch`, `run --profile`, and the option sets evpwide, iopio and
+iopio2 on the CPU, with the io suite's iopio row."""
 
 import argparse
 import dataclasses
@@ -125,18 +127,26 @@ def test_dynamics_and_transport_option_sets_run_through_the_cli(opts,
 
 
 def test_unported_option_sets_raise_naming_the_roadmap():
-    """The multi-GPU EVP (A8) raises naming its ROADMAP item; `ioasync`
-    (the background writer), which raised naming A7 until coupling and
-    I/O were ported, builds a Model that steps, and so does `modal`
-    (aerosols with modal optics in dEdd), which raised until the
-    biogeochemistry was ported."""
+    """No option set raises any more. `evpwide` and `gridc,evpwide`, which
+    raised naming A8 until the wide-halo EVP was ported, build a Model
+    that steps (one process has no mesh: the one-program solve, as in the
+    JAX package; parallel/evp_wide.py); sharding the state is what still
+    names A8. `ioasync` (the background writer), which raised naming A7
+    until coupling and I/O were ported, builds a Model that steps, and so
+    does `modal` (aerosols with modal optics in dEdd), which raised until
+    the biogeochemistry was ported."""
     from cice_tpu_torch.model.driver import Model
-    for opts, item in (("evpwide", "ROADMAP A8"),
-                       ("gridc,evpwide", "ROADMAP A8")):
+    from cice_tpu_torch.parallel.mesh import Mesh
+    for opts in ("evpwide", "gridc,evpwide"):
         cfg = tcli._default_test_cfg(_args(opts, type="smoke"),
                                      tcli.build_config(_args(opts)))
-        with pytest.raises(NotImplementedError, match=item):
-            Model(cfg, device="cpu")
+        m = Model(cfg.with_overrides(**{"grid.nx_global": 12,
+                                        "grid.ny_global": 10}), device="cpu")
+        assert m.cfg.dynamics.evp_algorithm == "wide_halo"
+        m.run(1)
+        assert np.isfinite(m.state.aice.numpy()).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        Mesh().shard_state(m.state)
     cfg = tcli._default_test_cfg(_args("ioasync", type="smoke"),
                                  tcli.build_config(_args("ioasync")))
     m = Model(cfg.with_overrides(**{"grid.nx_global": 12,
@@ -321,3 +331,43 @@ def test_plots_without_matplotlib_exit(monkeypatch, tmp_path):
     from cice_tpu_torch.cli import plots
     with pytest.raises(SystemExit, match="matplotlib"):
         plots.plot2d([str(tmp_path / "x.npz")])
+
+
+def test_python_dash_m_the_package():
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, "-m", "cice_tpu_torch", "--help"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "{run,case,test,suite,perf,qc,plot2d,timeseries}" in r.stdout
+
+
+def test_run_profile_writes_a_trace(tmp_path, capsys):
+    rc = tcli.main(["run", "--steps", "1", "--profile", str(tmp_path / "p"),
+                    "--device", "cpu", "--set", "grid.nx_global=8",
+                    "--set", "grid.ny_global=6", "--set", "dynamics.ndte=2",
+                    "--set", "thermo.nit=2"])
+    out = capsys.readouterr().out
+    assert rc == 0 and '"istep": 1' in out
+    trace = tmp_path / "p" / "run.pt.trace.json"
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "aten::add" for e in events)
+
+
+@pytest.mark.parametrize("opts", ["evpwide", "iopio", "iopio2"])
+def test_a8_option_sets_run_through_the_cli(opts, capsys):
+    """evpwide runs the one-program EVP on one process; iopio and iopio2
+    write pio restarts (a directory of shards) that the restart test
+    resumes from bit for bit (the iopio case is the io suite's iopio
+    row)."""
+    assert ("restart", "iopio") in tcli.SUITES["io"]
+    want = {"evpwide": ("dynamics", "evp_algorithm", "wide_halo")}.get(
+        opts, ("setup", "restart_format", "pio"))
+    cfg = tcli.build_config(_args(opts))
+    assert getattr(getattr(cfg, want[0]), want[1]) == want[2]
+    rc = tcli.main(["test", "--type", "restart", "--opts", opts,
+                    "--device", "cpu", "--set", "grid.nx_global=12",
+                    "--set", "grid.ny_global=10"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "PASS test_restart" in out, out

@@ -296,12 +296,19 @@ def test_read_restart_follows_the_template_device_and_dtype(runs, tmp_path):
 
 
 def test_pio_and_io_async_raise_naming_the_roadmap(tmp_path, capsys):
-    """Sharded restarts (ROADMAP A8) still raise. The background writer,
+    """Sharded restarts, which raised naming A8 until io/pio.py was ported,
+    write a directory of shards that read back bit for bit (through
+    `write_restart(fmt='pio')` and `read_restart`); the background writer,
     the point probes and the debug dumps, which raised naming A7 until
-    coupling and I/O were ported, now build a Model that steps."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tdriver.Model(_cfg("float32", tmp_path,
+    coupling and I/O were ported, build a Model that steps."""
+    m = tdriver.Model(_cfg("float32", tmp_path,
                            **{"setup.restart_format": "pio"}), device="cpu")
+    m.step()
+    path = m.write_restart()
+    assert os.path.isdir(path) and path.endswith(".pio")
+    st, cal = trestart.read_restart(m.cfg.setup.pointer_file, m.state)
+    assert cal == m.calendar
+    _assert_states_equal(st, m.state)
     m = tdriver.Model(_cfg("float32", tmp_path, **{"setup.io_async": True}),
                       device="cpu")
     assert m.io_writer is not None and m.io_writer.native
@@ -312,9 +319,9 @@ def test_pio_and_io_async_raise_naming_the_roadmap(tmp_path, capsys):
         assert f.read().strip() == path
     st, cal = trestart.read_restart(m.cfg.setup.pointer_file, m.state)
     _assert_states_equal(st, m.state)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        trestart.write_restart(str(tmp_path), m.state, m.calendar,
-                               fmt="pio")
+    pdir = trestart.write_restart(str(tmp_path / "p"), m.state, m.calendar,
+                                  fmt="pio")
+    _assert_states_equal(trestart.read_restart(pdir, m.state)[0], m.state)
     with pytest.raises(ValueError, match="unknown restart format"):
         trestart.write_restart(str(tmp_path), m.state, m.calendar,
                                fmt="nc4")
