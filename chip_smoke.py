@@ -127,12 +127,14 @@ per source, started together), then:
      2x4 ranks equal to `evp_c_solve`; (c) a tx1 (360x240) tripole solve
      through K1 tiles on 2x4 ranks equal to the plain `evp_solve` (K1
      alone refuses the grid); (d) two gx1pop_step steps with
-     evp_algorithm='wide_halo' on 1x2 ranks equal to two steps on one
-     rank; (e) their pio restart resumed on one rank bit for bit; (f) every
-     bfbflag of global_sum on the gx1pop state on 1, 1x2 and 2x1 ranks,
+     evp_algorithm='wide_halo' on 1x2 ranks, and on one process without a
+     mesh (K1 on the whole grid), equal to two steps on one rank; (e)
+     their pio restart resumed on one rank bit for bit; (f) every bfbflag
+     of global_sum on the gx1pop state on 1, 1x2 and 2x1 ranks,
      'reprosum' identical; K1's launches per rank and per solve, the ms per
-     wide solve beside K1 alone, the bytes staged per halo refresh and the
-     staging time.
+     wide solve beside K1 alone, the bytes staged per solve (halo
+     refreshes and the final all-gather) and the split of the solve's time
+     into staging copies, waits for the card and gloo calls.
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -1788,14 +1790,17 @@ def multi_rank(dev, smi) -> dict:
         ranks against the plain `evp_solve` on the whole grid (0.0): the
         fold comes through the exchange, K1 alone refuses the grid;
     (d) two steps of gx1pop_step() with evp_algorithm='wide_halo' on 1x2
-        ranks, each state leaf equal to two steps on one rank;
+        ranks, and on one process without a mesh (K1 on the whole grid,
+        launched), each state leaf equal to two steps on one rank;
     (e) a pio restart from those 2 ranks, resumed on one rank
         (runtype='continue') bit for bit;
     (f) every bfbflag of global_sum on CUDA tensors of the gx1pop state on
         1, 1x2 and 2x1 ranks: 'reprosum' identical on all three.
     Prints per rank count K1's launches per rank and per solve, ms per
     wide solve (host clock) beside K1 alone on the whole grid, the bytes
-    staged per halo refresh and the ms staging took."""
+    staged per solve and the solve's time split into the staging copies,
+    the waits for the card before them (K1's work), the gloo calls (the
+    wait for the peers included) and the rest (host)."""
     import argparse
     import shutil
 
@@ -1877,6 +1882,14 @@ def multi_rank(dev, smi) -> dict:
     one_leaves = [x.detach().cpu().numpy() for x in state_leaves(one.state)]
     wcfg = scfg.with_overrides(**{"dynamics.evp_algorithm": "wide_halo",
                                   "dynamics.evp_wide_k": 8})
+    # ... and two wide_halo steps on this one process, no mesh: K1 whole
+    solo = Model(wcfg, device=dev)
+    n0 = kevp.launches
+    solo.step()
+    solo.step()
+    solo_launches = kevp.launches - n0
+    solo_err = _max_abs(one_leaves, state_leaves(solo.state))
+    del solo
     # (f) the sums on one rank
     s = one.state
     fields = {"aice": s.aice, "vice": s.vice, "vsno": s.vsno,
@@ -1919,16 +1932,21 @@ def multi_rank(dev, smi) -> dict:
         err = _max_abs(agree(r, label), ref)
         st = [x["stats"] for x in r]
         ms = [1e3 * x["seconds"] for x in st]
-        per_ref = [x["staged_bytes"] / x["refreshes"] for x in st]
+        staged = [x["staged_bytes"] for x in st]
         stg = [1e3 * x["staged_seconds"] for x in st]
+        wait = [1e3 * x["wait_seconds"] for x in st]
+        wire = [1e3 * x["wire_seconds"] for x in st]
+        rest = [a - b - c - d for a, b, c, d in zip(ms, stg, wait, wire)]
         launches = [x["k1_launches"] for x in st]
+        rng = lambda v, f=".3f": f"{min(v):{f}}-{max(v):{f}}"
         rec = dict(max_abs_err=err, k1_launches_per_rank=launches,
                    k1_launches_per_solve=sum(launches),
                    persistent=[x["persistent"] for x in st],
                    stream=[x["stream"] for x in st],
                    k=st[0]["k"], halo=st[0]["halo"],
-                   ms_per_solve=ms, staged_bytes_per_refresh=per_ref,
-                   refreshes=st[0]["refreshes"], staging_ms=stg)
+                   ms_per_solve=ms, staged_bytes_per_solve=staged,
+                   refreshes=st[0]["refreshes"], staging_ms=stg,
+                   card_wait_ms=wait, gloo_ms=wire, rest_ms=rest)
         out["runs"][label] = rec
         ref_what = "K1 on the whole grid" if j < 3 else \
             "the plain evp_solve on the whole grid"
@@ -1943,9 +1961,10 @@ def multi_rank(dev, smi) -> dict:
               f"{min(ms):.3f}-{max(ms):.3f} beside K1 alone on the whole "
               f"grid {k1_ms:.3f}" + (f", plain {t_plain_ms:.3f}"
                                      if j == 3 else "") +
-              f"; bytes staged per refresh {min(per_ref):.0f}-"
-              f"{max(per_ref):.0f}, staging ms per solve "
-              f"{min(stg):.3f}-{max(stg):.3f}; on {smi}")
+              f"; bytes staged per solve (halo refreshes and the "
+              f"all-gather) {rng(staged, '.0f')}; ms per solve: staging "
+              f"copies {rng(stg)}, waits for the card {rng(wait)}, gloo "
+              f"calls {rng(wire)}, the rest {rng(rest)}; on {smi}")
         if err != 0.0:
             fail(f"phase 14 {label}: the wide solve leaves its reference "
                  f"by {err}")
@@ -1975,7 +1994,10 @@ def multi_rank(dev, smi) -> dict:
         max_abs_err=derr, k1_launches_per_rank=[x["k1_launches"] for x in st],
         ms_per_step=[1e3 * x["seconds_per_step"] for x in st],
         staged_bytes=[x["staged_bytes"] for x in st],
-        staging_ms=[1e3 * x["staged_seconds"] for x in st])
+        staging_ms=[1e3 * x["staged_seconds"] for x in st],
+        card_wait_ms=[1e3 * x["wait_seconds"] for x in st],
+        gloo_ms=[1e3 * x["wire_seconds"] for x in st],
+        one_process=dict(max_abs_err=solo_err, k1_launches=solo_launches))
     print(f"phase 14 (d) gx1pop_step, wide_halo on 1x2 ranks, 2 steps: "
           f"max abs error {derr} over {len(got)} state leaves against 2 "
           f"steps on one rank; K1 launches per rank "
@@ -1984,9 +2006,15 @@ def multi_rank(dev, smi) -> dict:
           f"staged {[x['staged_bytes'] for x in st]} in "
           f"{[round(1e3 * x['staged_seconds'], 3) for x in st]} ms "
           f"(host clock) on {smi}")
+    print(f"phase 14 (d) gx1pop_step, wide_halo on one process without a "
+          f"mesh, 2 steps: max abs error {solo_err} against 2 fused_pallas "
+          f"steps; K1 launches {solo_launches} (whole grid)")
     if derr != 0.0 or min(x["k1_launches"] for x in st) < 1:
         fail(f"phase 14 (d): wide steps leave the one-rank steps by {derr} "
              "or K1 was not launched on every rank")
+    if solo_err != 0.0 or solo_launches < 1:
+        fail(f"phase 14 (d): wide_halo without a mesh leaves the one-rank "
+             f"steps by {solo_err} or did not launch K1 ({solo_launches})")
     # (e) resume the 2 ranks' pio restart on one rank
     path = st[0]["restart"]
     with open(scfg.setup.pointer_file) as f:
@@ -2481,7 +2509,8 @@ def main() -> int:
          "multi_rank": {
              label: {k: v for k, v in run.items()
                      if k in ("max_abs_err", "k1_launches_per_rank",
-                              "k1_launches_per_solve", "ms_per_solve")}
+                              "k1_launches_per_solve", "ms_per_solve",
+                              "one_process")}
              for label, run in ranks["runs"].items()
              if "k1_launches_per_rank" in run}},
         {"name": "transport_fused", "route": "cuda",

@@ -9,12 +9,13 @@ each shard's index slices. The layout is the JAX package's, so either
 package reads what the other wrote, on any mesh:
 
     <name>.p<rank>s<k>.npy          a shard (k counts a rank's shards)
-    <name>.manifest.json            rank 0's manifest
+    <name>.manifest.json            the first rank's manifest
     <name>.manifest.p<rank>.json    the manifest of every other rank
 
 Without a mesh an array is one shard. With a mesh (parallel.mesh.Mesh)
-each rank writes its tile of every array of two or more dimensions; rank 0
-alone writes a smaller one. A restart (`write_restart_sharded`) is a
+each rank writes its tile of every array of two or more dimensions; the
+mesh's first rank (rank 0 of the whole world, or the first of a mesh's
+group) alone writes a smaller one. A restart (`write_restart_sharded`) is a
 directory `<prefix>.<timestamp>.pio/` of the state's leaves (`leaf_<i>`,
 numbered as io/restart.py numbers them) and `meta.json` with the calendar,
 named by the pointer file.
@@ -30,7 +31,7 @@ follow-ons in submission order, so the pointer never names a restart whose
 shards or manifests are not on the disk. (The JAX package writes manifests
 and pointer at once while the shards are still queued, pio.py:80-82,
 130-134.) Across ranks, every rank flushes its writer, the ranks meet at a
-barrier, and only then rank 0 writes `meta.json` and the pointer.
+barrier, and only then the first rank writes `meta.json` and the pointer.
 """
 
 from __future__ import annotations
@@ -58,8 +59,11 @@ def _index_from_json(spec) -> tuple:
     return tuple(slice(a, b) for a, b in spec)
 
 
-def _rank(mesh) -> Tuple[int, int]:
-    return (0, 1) if mesh is None else (mesh.rank, mesh.size)
+def _rank(mesh) -> Tuple[int, int, bool]:
+    """(rank, ranks, whether this rank leads: the mesh's first)."""
+    if mesh is None:
+        return 0, 1, True
+    return mesh.rank, mesh.size, mesh.rank == mesh.group_ranks[0]
 
 
 def write_field_sharded(dirpath: str, name: str, arr: torch.Tensor,
@@ -69,11 +73,11 @@ def write_field_sharded(dirpath: str, name: str, arr: torch.Tensor,
     (io.async_writer.AsyncWriter) the shard is queued and the manifest is
     its follow-on."""
     os.makedirs(dirpath, exist_ok=True)
-    rank, nprocs = _rank(mesh)
+    rank, nprocs, lead = _rank(mesh)
     if mesh is not None and arr.ndim >= 2:
         sy, sx = mesh.tile_slices(*arr.shape[-2:])
         index = (slice(None),) * (arr.ndim - 2) + (sy, sx)
-    elif rank == 0:
+    elif lead:
         index = ()
     else:
         return None
@@ -85,7 +89,7 @@ def write_field_sharded(dirpath: str, name: str, arr: torch.Tensor,
                             "index": _index_to_json(index, arr.ndim),
                             "device": str(arr.device)}],
                 "nprocs": nprocs}
-    mname = (f"{name}.manifest.json" if rank == 0
+    mname = (f"{name}.manifest.json" if lead
              else f"{name}.manifest.p{rank}.json")
     buf = io.BytesIO()
     np.save(buf, data)
@@ -154,7 +158,7 @@ def write_restart_sharded(dirpath: str, state: State, calendar: Calendar,
                           f"of {ddir} failed")
         mesh.barrier()
         writer = None
-    if mesh is None or mesh.rank == mesh.group_ranks[0]:
+    if _rank(mesh)[2]:
         write_bytes(os.path.join(ddir, "meta.json"),
                     json.dumps(meta).encode(), writer, pointer)
     return ddir

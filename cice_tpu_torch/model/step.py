@@ -648,8 +648,9 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     chooses the EVP solver: 'fused_pallas' runs the fused CUDA EVP kernel
     (kernels/evp.py; its plain version on CPU tensors), 'standard_2d' the
     plain PyTorch loop, and 'wide_halo' the wide-halo solve across the
-    ranks of `ms.mesh` (parallel/evp_wide.py; without a mesh the plain
-    loop, as in the JAX package). On a C grid 'wide_halo' runs the C-grid
+    ranks of `ms.mesh` (parallel/evp_wide.py; without a mesh the one-program
+    solve, as in the JAX package, through the fused kernel as
+    'fused_pallas'). On a C grid 'wide_halo' runs the C-grid
     wide-halo solve and the others `evp_c_solve`, as in the JAX package
     (no kernel computes the C-grid EVP, so this is not a fallback); the
     CD grid always runs `evp_cd_solve`."""

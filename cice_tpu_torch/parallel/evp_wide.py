@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from ..core.halo import BC
 from ..dynamics.common import DynPrep, EvpParams, stepu_dense
-from ..dynamics.evp import evp_solve, evp_tail, stress_update
+from ..dynamics.evp import evp_tail, stress_update
 
 N_CONST = 26
 N_STATE = 14
@@ -254,10 +254,13 @@ def evp_solve_wide(grid, p: EvpParams, prep: DynPrep, strength, stressp,
     """`dynamics.evp.evp_solve` with k_fuse subcycles per halo exchange on
     `mesh`; returns the same 9-tuple (uvel, vvel, stressp, stressm,
     stress12, strintx, strinty, taubx, tauby) on every rank. mesh=None
-    runs `evp_solve`."""
+    runs the one-program solve `kernels.evp.evp_solve_fused`: K1 on CUDA
+    tensors, equal bit for bit to the plain `evp_solve` it runs on CPU
+    tensors."""
     if mesh is None:
-        return evp_solve(grid, p, prep, strength, stressp, stressm,
-                         stress12, uocn=uocn, vocn=vocn)
+        from ..kernels.evp import evp_solve_fused
+        return evp_solve_fused(grid, p, prep, strength, stressp, stressm,
+                               stress12, uocn=uocn, vocn=vocn)
     ny, nx = grid.shape
     ly, lx, k, H = _tile_geometry(mesh, grid.shape, 1, k_fuse, p.ndte)
     dtype = prep.uvel.dtype

@@ -15,9 +15,16 @@ partner (the tripole fold's), and moves data between them:
 
 gloo moves CPU tensors only, so under gloo every CUDA tensor is copied to
 the host on its way out and back on its way in (the exchange's through
-pinned buffers it keeps). That staging is explicit, and the exchange
-counts it (`staged_bytes`, `staged_seconds`); the arithmetic stays on the
-card. Under NCCL the same calls move CUDA tensors directly.
+pinned buffers it keeps). That staging is explicit, and every call counts
+it; the arithmetic stays on the card. Under NCCL the same calls move CUDA
+tensors directly. The counters, split so that they add up:
+
+- `staged_bytes`, `staged_seconds`: the copies between card and host
+  (exchanges and collectives alike);
+- `wait_seconds`: before staging, the wait for the card's queued work
+  (on the wide EVP, the K1 launches since the last message);
+- `wire_seconds`: the host's time in the process group's calls, the
+  wait for the peers included.
 
 With no process group a Mesh is a 1x1 grid of the one process. The state
 stays whole on every rank: sharding it (`shard_state`) is the third part
@@ -92,6 +99,8 @@ class Mesh:
         self.exchanges = 0
         self.staged_bytes = 0
         self.staged_seconds = 0.0
+        self.wait_seconds = 0.0
+        self.wire_seconds = 0.0
         self._pinned: dict = {}
 
     # -- layout -------------------------------------------------------------
@@ -145,6 +154,13 @@ class Mesh:
     def _stages(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
 
+    def _settle(self, device) -> None:
+        """Wait for the card's queued work, so that the staging clock that
+        follows times the copies alone."""
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(device)
+        self.wait_seconds += time.perf_counter() - t0
+
     def _host(self, key, t: torch.Tensor) -> torch.Tensor:
         buf = self._pinned.get(key)
         if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
@@ -159,6 +175,11 @@ class Mesh:
         message of that tag from that peer. Messages between two ranks
         are matched by tag, and in the order they are listed."""
         self.exchanges += 1
+        sends, recvs = list(sends), list(recvs)
+        cards = {t.device for peer, t, _ in sends + recvs
+                 if peer != self.rank and self._stages(t)}
+        for device in cards:
+            self._settle(device)
         t0 = time.perf_counter()
         staged = 0
         local, ops, keep, after = {}, [], [], []
@@ -189,8 +210,10 @@ class Mesh:
             ops.append(dist.P2POp(dist.irecv, wire, peer, self.group, tag))
         t_out = time.perf_counter() - t0
         if ops:
+            tw = time.perf_counter()
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
+            self.wire_seconds += time.perf_counter() - tw
         t1 = time.perf_counter()
         for t, wire in after:
             t.copy_(wire)
@@ -200,16 +223,39 @@ class Mesh:
 
     # -- collectives ----------------------------------------------------------
     def _out(self, t: torch.Tensor) -> torch.Tensor:
-        return t.cpu() if self._stages(t) else t.contiguous()
+        """A copy of `t` to put on the wire: on the host under gloo."""
+        if not self._stages(t):
+            return t.clone(memory_format=torch.contiguous_format)
+        self._settle(t.device)
+        t0 = time.perf_counter()
+        wire = t.cpu()
+        self.staged_bytes += wire.numel() * wire.element_size()
+        self.staged_seconds += time.perf_counter() - t0
+        return wire
+
+    def _in(self, wire: torch.Tensor, device) -> torch.Tensor:
+        """A message back on `device` (a copy from the host under gloo)."""
+        if wire.device == torch.device(device):
+            return wire
+        t0 = time.perf_counter()
+        out = wire.to(device)
+        self.staged_bytes += wire.numel() * wire.element_size()
+        self.staged_seconds += time.perf_counter() - t0
+        return out
+
+    def _wire(self, call, *args, **kw) -> None:
+        t0 = time.perf_counter()
+        call(*args, group=self.group, **kw)
+        self.wire_seconds += time.perf_counter() - t0
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The reduction ('sum', 'max' or 'min') of `t` over the mesh's
         ranks, as a new tensor on `t`'s device."""
         if self.size == 1:
             return t.clone()
-        wire = self._out(t).clone()
-        dist.all_reduce(wire, _OPS[op], group=self.group)
-        return wire.to(t.device)
+        wire = self._out(t)
+        self._wire(dist.all_reduce, wire, _OPS[op])
+        return self._in(wire, t.device)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """`t` of every rank, stacked in group order on `t`'s device."""
@@ -217,8 +263,8 @@ class Mesh:
             return t[None].clone()
         wire = self._out(t)
         parts = [torch.empty_like(wire) for _ in range(self.size)]
-        dist.all_gather(parts, wire, group=self.group)
-        return torch.stack(parts).to(t.device)
+        self._wire(dist.all_gather, parts, wire)
+        return self._in(torch.stack(parts), t.device)
 
     def all_gather_tiles(self, tile: torch.Tensor, ny: int,
                          nx: int) -> torch.Tensor:

@@ -5,22 +5,23 @@
 `launch` starts `world` processes (start method `spawn`), joins them in a
 gloo process group over a `file://` rendezvous in `workdir` (no port to
 collide with another run's), and runs every job on every rank in order. A
-job is (name, kwargs, nranks): the function `JOBS[name]` runs on ranks 0
-.. nranks-1 in a group of their own and gets that group as `group=`; the
-other ranks skip it. `launch` returns, per job, the list of the ranks'
-results (None where a rank skipped), and raises with the failing rank's
-traceback if one raised, or TimeoutError.
+job is (fn, kwargs, nranks): `fn`, a name in `JOBS` or a function defined
+at the top of a module, runs on ranks 0 .. nranks-1 in a group of their
+own and gets that group as `group=`; the other ranks skip it. `launch`
+returns, per job, the list of the ranks' results (None where a rank
+skipped), and raises with the failing rank's traceback if one raised, or
+TimeoutError.
 
-The workers import torch and this package only: the processes start from
-a fresh interpreter, and a test module (which imports JAX) is never
-imported there. Inputs too large for the arguments travel as files that
-`save` writes and `load` reads (pickles this package writes itself).
-The ranks may share one CUDA device: each job names its `device`.
+The processes start from a fresh interpreter with the caller's `sys.path`
+and import torch, this package and the module of each job's function, so
+a job's module must not import what the ranks should not load (a module
+of tests that imports JAX). Inputs too large for the arguments travel as
+files that `save` writes and `load` reads (pickles this package writes
+itself). The ranks may share one CUDA device: each job names its
+`device`.
 
-The jobs are the ones the tests (tests/test_torch_evp_wide.py,
-test_torch_reductions.py, test_torch_pio.py, test_torch_multirank_cuda.py)
-and `chip_smoke.py` phase 14 run across ranks: the wide-halo EVP on the B
-and C grids, whole model steps, sharded restarts and global sums.
+`JOBS` holds what `chip_smoke.py` phase 14 runs across ranks: the
+wide-halo EVP on the B and C grids, whole model steps and global sums.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _result(mesh, outs, stats=None) -> dict:
+def rank_result(mesh, outs, stats=None) -> dict:
     """Rank 0 returns the arrays; every rank their digest, and `stats`."""
     arrays = [_np(x) for x in outs]
     return dict(digest=digest(arrays), stats=stats or {},
@@ -127,7 +128,8 @@ def _result(mesh, outs, stats=None) -> dict:
 
 def _job_evp_b(*, group, problem, shape, k_fuse, device="cpu", repeat=1):
     """evp_solve_wide on a `shape` mesh; `repeat` solves, the stats of the
-    last one (host clock after a synchronise; K1 launches; staging)."""
+    last one (host clock after a synchronise; K1 launches; the mesh's
+    staging, card-wait and wire counters)."""
     from ..kernels import evp as kevp
     from .evp_wide import _chunks, _tile_geometry, evp_solve_wide
     from .mesh import Mesh
@@ -137,6 +139,7 @@ def _job_evp_b(*, group, problem, shape, k_fuse, device="cpu", repeat=1):
         _sync(device)
         n0, e0 = kevp.launches, mesh.exchanges
         b0, s0 = mesh.staged_bytes, mesh.staged_seconds
+        w0, r0 = mesh.wait_seconds, mesh.wire_seconds
         t0 = time.perf_counter()
         out = evp_solve_wide(*args, **kw, mesh=mesh, k_fuse=k_fuse)
         _sync(device)
@@ -150,8 +153,10 @@ def _job_evp_b(*, group, problem, shape, k_fuse, device="cpu", repeat=1):
                  exchanges=mesh.exchanges - e0,
                  staged_bytes=mesh.staged_bytes - b0,
                  staged_seconds=mesh.staged_seconds - s0,
+                 wait_seconds=mesh.wait_seconds - w0,
+                 wire_seconds=mesh.wire_seconds - r0,
                  coords=mesh.coords)
-    return _result(mesh, out, stats)
+    return rank_result(mesh, out, stats)
 
 
 def _job_evp_c(*, group, problem, shape, k_fuse, device="cpu", repeat=1):
@@ -167,7 +172,7 @@ def _job_evp_c(*, group, problem, shape, k_fuse, device="cpu", repeat=1):
         final, uU, vU = evp_c_solve_wide(*args, mesh=mesh, k_fuse=k_fuse)
         _sync(device)
         sec = time.perf_counter() - t0
-    return _result(mesh, list(final) + [uU, vU],
+    return rank_result(mesh, list(final) + [uU, vU],
                    dict(seconds=sec, exchanges=mesh.exchanges))
 
 
@@ -189,12 +194,14 @@ def _job_model_steps(*, group, cfg, nsteps, shape, device="cpu",
     sec = (time.perf_counter() - t0) / nsteps
     path = m.write_restart() if write_restart else None
     m.flush_io()
-    return _result(mesh, state_leaves(m.state),
+    return rank_result(mesh, state_leaves(m.state),
                    dict(k1_launches=kevp.launches - n0, restart=path,
                         istep=m.calendar.istep, seconds_per_step=sec,
                         exchanges=mesh.exchanges,
                         staged_bytes=mesh.staged_bytes,
-                        staged_seconds=mesh.staged_seconds))
+                        staged_seconds=mesh.staged_seconds,
+                        wait_seconds=mesh.wait_seconds,
+                        wire_seconds=mesh.wire_seconds))
 
 
 def _job_global_sums(*, group, fields, shape, modes, device="cpu"):
@@ -211,64 +218,8 @@ def _job_global_sums(*, group, fields, shape, modes, device="cpu"):
     return out
 
 
-def _job_mesh_layout(*, group, shape=None, grid_shape=None,
-                     curve_order=False):
-    """A Mesh's layout as this rank sees it: the rank grid, its
-    coordinates, tile, neighbours (open and cyclic) and mirror."""
-    from .mesh import Mesh
-    mesh = Mesh(shape, grid_shape=grid_shape, curve_order=curve_order,
-                group=group)
-    nb = {(dy, dx, c): mesh.neighbour(dy, dx, y_cyclic=c, x_cyclic=c)
-          for dy in (-1, 0, 1) for dx in (-1, 0, 1) for c in (False, True)}
-    return dict(ranks=mesh.ranks.tolist(), coords=mesh.coords,
-                tile=mesh.tile_slices(48, 40), neighbours=nb,
-                mirror=mesh.mirror(), backend=mesh.backend)
-
-
-def _job_write_fields(*, group, fields, dirpath, shape, device="cpu"):
-    """write_field_sharded of each field (a file of {name: array}), every
-    rank its tile."""
-    from ..io.pio import write_field_sharded
-    from .mesh import Mesh
-    mesh = Mesh(shape, group=group)
-    return {name: write_field_sharded(
-                dirpath, name, torch.as_tensor(a, device=device), mesh=mesh)
-            for name, a in load(fields).items()}
-
-
-def _job_write_restart(*, group, state, calendar, dirpath, shape,
-                       device="cpu", pointer_file=None):
-    """write_restart_sharded of a state ({field: array} as
-    convert.state_to_numpy gives it) and a calendar (its fields)."""
-    from ..calendar import Calendar
-    from ..convert import state_from_numpy
-    from ..io.pio import write_restart_sharded
-    from .mesh import Mesh
-    mesh = Mesh(shape, group=group)
-    return write_restart_sharded(
-        dirpath, state_from_numpy(load(state), device), Calendar(**calendar),
-        pointer_file, mesh=mesh)
-
-
-def _job_read_restart(*, group, path, template, shape, device="cpu"):
-    """read_restart_sharded on every rank of a `shape` mesh into a
-    template state (a file as in `_job_write_restart`)."""
-    from ..convert import state_from_numpy
-    from ..io.pio import read_restart_sharded
-    from ..model.state import state_leaves
-    from .mesh import Mesh
-    mesh = Mesh(shape, group=group)
-    st, cal = read_restart_sharded(
-        path, state_from_numpy(load(template), device))
-    return _result(mesh, state_leaves(st), dict(istep=cal.istep))
-
-
 JOBS = {"evp_b": _job_evp_b, "evp_c": _job_evp_c,
-        "model_steps": _job_model_steps, "global_sums": _job_global_sums,
-        "mesh_layout": _job_mesh_layout,
-        "write_fields": _job_write_fields,
-        "write_restart": _job_write_restart,
-        "read_restart": _job_read_restart}
+        "model_steps": _job_model_steps, "global_sums": _job_global_sums}
 
 
 # ---------------------------------------------------------------------------
@@ -282,11 +233,11 @@ def _child(rank, world, init_file, jobs, q):
         dist.init_process_group("gloo", init_method=f"file://{init_file}",
                                 rank=rank, world_size=world)
         results = []
-        for name, kw, n in jobs:
+        for fn, kw, n in jobs:
             # every rank takes part in making each group
             group = dist.new_group(list(range(n))) if n < world else None
-            results.append(JOBS[name](group=group, **kw) if rank < n
-                           else None)
+            fn = JOBS[fn] if isinstance(fn, str) else fn
+            results.append(fn(group=group, **kw) if rank < n else None)
         q.put((rank, results, None))
     except BaseException:          # reported to the parent, then re-raised
         q.put((rank, None, traceback.format_exc()))
@@ -301,9 +252,9 @@ def launch(jobs, world: int, workdir: str, *,
     """Run `jobs` on `world` spawned ranks (one CPU thread each); returns
     [per job: [per rank: result]]."""
     import torch.multiprocessing as mp
-    for name, _, n in jobs:
-        if name not in JOBS or not 1 <= n <= world:
-            raise ValueError(f"job {name!r} on {n} of {world} ranks")
+    for fn, _, n in jobs:
+        if not (callable(fn) or fn in JOBS) or not 1 <= n <= world:
+            raise ValueError(f"job {fn!r} on {n} of {world} ranks")
     os.makedirs(workdir, exist_ok=True)
     init_file = os.path.join(os.path.abspath(workdir),
                              f"rendezvous_{uuid.uuid4().hex}")

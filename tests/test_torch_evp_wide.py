@@ -54,6 +54,8 @@ from cice_tpu_torch.parallel.evp_wide import (evp_c_solve_wide,  # noqa: E402
                                               evp_solve_wide)
 from cice_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 
+import test_torch_rank_jobs as rank_jobs  # noqa: E402
+
 B_OUT = ("uvel", "vvel", "stressp", "stressm", "stress12", "strintx",
          "strinty", "taubx", "tauby")
 C_OUT = ("uvelE", "vvelN", "stresspT", "stressmT", "stress12U", "uvelU",
@@ -207,7 +209,7 @@ def runs(tmp_path_factory):
                      8))
     layouts = [dict(shape=(2, 4)), dict(shape=(2, 4), curve_order=True),
                dict(grid_shape=(384, 320)), dict()]
-    jobs += [("mesh_layout", kw, 8) for kw in layouts]
+    jobs += [(rank_jobs.mesh_layout, kw, 8) for kw in layouts]
     res = spawn.launch(jobs, 8, wd, timeout=300.0)
     out = {name: (r, ref, jprob)
            for (name, ref, jprob), r in zip(cases, res)}
@@ -300,9 +302,10 @@ def test_c_wide_k1_vs_k4(runs):
 @pytest.mark.parametrize("bc", [("cyclic", "open"), ("cyclic", "cyclic"),
                                 ("cyclic", "tripole")])
 def test_one_rank_mesh_and_no_mesh(bc):
-    """mesh=None is `evp_solve` (the JAX package's fallback); a 1x1 Mesh
-    with no process group runs the tiled path here, its cyclic halos and
-    the fold as messages to itself, and gives the same bits."""
+    """mesh=None is the one-program solve (the JAX package's fallback;
+    `evp_solve` on CPU tensors); a 1x1 Mesh with no process group runs the
+    tiled path here, its cyclic halos and the fold as messages to itself,
+    and gives the same bits."""
     args, kw = _port_b(_jax_b_problem(24, 16, bc, 5), bc)
     ref = evp_solve(*args, **kw)
     _exact(B_OUT, [x.numpy() for x in evp_solve_wide(*args, **kw,
@@ -317,6 +320,27 @@ def test_one_rank_mesh_and_no_mesh(bc):
     got = evp_c_solve_wide(*cargs, mesh=mesh, k_fuse=2)
     _exact(C_OUT, [x.numpy() for x in list(got[0]) + list(got[1:])],
            list(fin) + [uU, vU])
+
+
+def test_no_mesh_on_the_card_launches_the_fused_kernel(monkeypatch):
+    """mesh=None on CUDA tensors runs K1 on the whole grid (through
+    `evp_solve_fused`), never the plain loop: the fake card here records
+    the kernel's call and returns the plain solve's planes."""
+    from cice_tpu_torch.kernels import evp as kevp
+    args, kw = _port_b(_jax_b_problem(24, 16, ("cyclic", "open"), 3),
+                       ("cyclic", "open"))
+    ref = evp_solve(*args, **kw)
+    calls = []
+
+    def fake_cuda(*a, **k):
+        calls.append(a[1].ndte)
+        return torch.cat([x.reshape(-1, *x.shape[-2:]) for x in ref])
+
+    monkeypatch.setattr(kevp, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(kevp, "evp_solve_cuda", fake_cuda)
+    got = evp_solve_wide(*args, **kw, mesh=None)
+    assert calls == [3]
+    _exact(B_OUT, [x.numpy() for x in got], ref)
 
 
 def test_unequal_tiles_are_refused():

@@ -9,9 +9,11 @@ with
   solve equals K1 on the whole grid bit for bit, on 1x2 and 2x1 ranks;
   on a tripole grid (which K1 alone refuses) it equals the plain
   `evp_solve` bit for bit.
-- gloo carries CPU tensors only: each halo message of a CUDA tile is
-  staged through pinned host memory, and the bytes staged are counted
-  exactly.
+- gloo carries CPU tensors only: each halo message of a CUDA tile, and
+  the final all-gather of the interiors, is staged through host memory,
+  and the bytes staged are counted exactly.
+- One process without a mesh runs evp_algorithm='wide_halo' through K1 on
+  the whole grid, bit for bit as 'fused_pallas'.
 """
 
 import os
@@ -86,12 +88,38 @@ def test_the_exchange_stages_through_the_host(runs):
     """On a 1x2 mesh with a cyclic x axis each rank sends and receives two
     column slabs per stage (one per side; the rows stage sends nothing on
     an open y axis): 26 constant planes once, 14 state planes per chunk,
-    H = K columns of the padded height, 4 bytes a value, both ways."""
+    H = K columns of the padded height, 4 bytes a value, both ways. The
+    all-gather stages the rank's 14-plane tile out and both tiles back."""
     r, _ = runs[("open", (1, 2))]
     H = K
     h = NY + 2 * H
     chunks = -(-NDTE // K)
-    want = 2 * 2 * H * h * 4 * (26 + 14 * chunks)
+    tile = 14 * NY * (NX // 2) * 4
+    want = 2 * 2 * H * h * 4 * (26 + 14 * chunks) + tile + 2 * tile
     for x in r:
-        assert x["stats"]["staged_bytes"] == want
-        assert x["stats"]["staged_seconds"] > 0
+        st = x["stats"]
+        assert st["staged_bytes"] == want
+        assert st["staged_seconds"] > 0 and st["wire_seconds"] > 0
+        assert st["wait_seconds"] > 0
+        assert st["staged_seconds"] + st["wire_seconds"] + \
+            st["wait_seconds"] < st["seconds"]
+
+
+def test_one_process_wide_halo_step_launches_k1(cuda):
+    """Without a mesh 'wide_halo' is the one-program solve through K1 on
+    the whole grid: launched, and equal to 'fused_pallas' bit for bit."""
+    from cice_tpu_torch.config import gx1pop_step
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.state import state_leaves
+    base = gx1pop_step(48, 40)
+    out = {}
+    for algo in ("fused_pallas", "wide_halo"):
+        m = Model(base.with_overrides(**{"dynamics.evp_algorithm": algo}),
+                  device="cuda")
+        n0 = kevp.launches
+        m.step()
+        out[algo] = (kevp.launches - n0, state_leaves(m.state))
+    assert out["wide_halo"][0] >= 1
+    assert out["wide_halo"][0] == out["fused_pallas"][0]
+    for a, b in zip(out["wide_halo"][1], out["fused_pallas"][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

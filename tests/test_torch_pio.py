@@ -37,6 +37,8 @@ from cice_tpu_torch.model.driver import Model  # noqa: E402
 from cice_tpu_torch.model.state import state_leaves  # noqa: E402
 from cice_tpu_torch.parallel import spawn  # noqa: E402
 
+import test_torch_rank_jobs as jobs  # noqa: E402
+
 SMALL = {"grid.nx_global": 16, "grid.ny_global": 16,
          "grid.grid_format": "rect", "grid.kmt_type": "none",
          "forcing.atm_data_type": "box2001",
@@ -60,7 +62,8 @@ def _cal(jcal):
 def world(tmp_path_factory, devices8):
     """The JAX restart on a (2,4) mesh, then one launch of 8 ranks: a
     field from 2x4 ranks, the port's restart from 2x4 ranks, JAX's restart
-    read on 4x2 ranks."""
+    read on 4x2 ranks, then fields and a restart from a 1x4 mesh of ranks
+    4-7 (a group without rank 0)."""
     root = tmp_path_factory.mktemp("pio")
     jm = JModel(JConfig().with_overrides(**SMALL))
     jdir = jpio.write_restart_sharded(
@@ -71,17 +74,25 @@ def world(tmp_path_factory, devices8):
         np.float32), "stack": np.random.RandomState(2).randn(3, 8, 12)}
     fpath = spawn.save(fields, str(root / "fields.pkl"))
     spath = spawn.save(convert.state_to_numpy(state), str(root / "st.pkl"))
-    jobs = [("write_fields", dict(fields=fpath, dirpath=str(root / "f"),
+    small = {"scalar": np.float64(2.5), "line": np.arange(7.0),
+             "fld": fields["fld"]}
+    smallpath = spawn.save(small, str(root / "small.pkl"))
+    res = spawn.launch(
+        [(jobs.write_fields, dict(fields=fpath, dirpath=str(root / "f"),
                                   shape=(2, 4)), 8),
-            ("write_restart", dict(state=spath, calendar=_cal(jm.calendar),
+         (jobs.write_restart, dict(state=spath, calendar=_cal(jm.calendar),
                                    dirpath=str(root / "port"), shape=(2, 4),
                                    pointer_file=str(root / "port" / "ptr")),
-             8),
-            ("read_restart", dict(path=str(root / "jax" / "ptr"),
-                                  template=spath, shape=(4, 2)), 8)]
-    res = spawn.launch(jobs, 8, str(root), timeout=300.0)
+          8),
+         (jobs.read_restart, dict(path=str(root / "jax" / "ptr"),
+                                  template=spath, shape=(4, 2)), 8),
+         (jobs.write_on_last_ranks, dict(
+             nranks=4, fields=smallpath, state=spath,
+             calendar=_cal(jm.calendar), dirpath=str(root / "last"),
+             pointer_file=str(root / "last" / "ptr")), 8)],
+        8, str(root), timeout=300.0)
     return dict(root=root, jm=jm, jdir=jdir, state=state, fields=fields,
-                res=res)
+                small=small, res=res)
 
 
 def test_field_roundtrip_unsharded(tmp_path):
@@ -146,6 +157,29 @@ def test_port_restart_from_2x4_ranks_reads_into_jax_on_4x2(world):
                                         template)
     assert cal.istep == world["jm"].calendar.istep
     _assert_leaves_equal(jax.tree.leaves(st),
+                         [x.numpy() for x in state_leaves(world["state"])])
+
+
+def test_a_mesh_without_rank_0_writes_every_array(world):
+    """On a mesh whose group leaves out rank 0 its first rank (4) writes
+    the arrays of fewer than two dimensions, the unnumbered manifests,
+    meta.json and the pointer; the restart reads back bit for bit."""
+    r = world["res"][3]
+    assert r[:4] == [None] * 4
+    d = str(world["root"] / "last")
+    for name, x in world["small"].items():
+        assert os.path.exists(os.path.join(d, f"{name}.manifest.json"))
+        got = pio.read_field_sharded(d, name).numpy()
+        assert got.shape == np.shape(x)
+        np.testing.assert_array_equal(got, x)
+    assert [m is None for m in (x["fields"]["line"] for x in r[4:])] == \
+        [False, True, True, True]
+    ddir = r[4]["restart"]
+    with open(world["root"] / "last" / "ptr") as f:
+        assert f.read().strip() == ddir
+    st, cal = pio.read_restart_sharded(ddir, world["state"])
+    assert cal.istep == world["jm"].calendar.istep
+    _assert_leaves_equal([x.numpy() for x in state_leaves(st)],
                          [x.numpy() for x in state_leaves(world["state"])])
 
 
