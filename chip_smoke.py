@@ -134,7 +134,20 @@ per source, started together), then:
      'reprosum' identical; K1's launches per rank and per solve, the ms per
      wide solve beside K1 alone, the bytes staged per solve (halo
      refreshes and the final all-gather) and the split of the solve's time
-     into staging copies, waits for the card and gloo calls.
+     into staging copies, waits for the card and gloo calls;
+ 15. the whole step with the state sharded across ranks on the one card
+     (`sharded_state`): 8 spawned gloo processes, each holding only its
+     tile of every array, run 2 steps of gx1pop_step() (K1 + K3) and of
+     gx1pop_step(remap_kernel='auto') (K1 + K2) at 320x384 on 2x4 and on
+     4x2 ranks; every gathered state leaf must equal 2 steps of one
+     process (max abs error 0.0) and K1 and K3 (or K2) must launch on
+     every rank's tile. It prints the launches per rank, the messages and
+     bytes staged per step and the ms per step split into staging copies,
+     waits for the card, gloo calls and the rest; then the CLI's
+     `test --type decomp` rows (the decomp suite: 2 steps on 1 process
+     against 2x4 and 4x2 ranks, f64, on the card) and the perf sweep
+     across 1, 2, 4 and 8 ranks (`perf --mesh 1,2,4,8` at 384x320, one
+     timed solve per row).
 
 Every path is driven with the launch counters set to 0 just before it and
 read just after.
@@ -1914,7 +1927,10 @@ def multi_rank(dev, smi) -> dict:
             ("global_sums", dict(fields=fpath, shape=(2, 1),
                                  modes=BFBFLAGS, device="cuda"), 2)]
     t0 = time.perf_counter()
-    res = spawn.launch(jobs, 8, RANKS_ROOT, timeout=600.0)
+    # ranks 2-7 skip the 2-rank jobs and wait for ranks 0-1 at the next
+    # job's group: longer than a message would take
+    res = spawn.launch(jobs, 8, RANKS_ROOT, timeout=600.0,
+                       group_timeout=600.0)
     spawn_s = time.perf_counter() - t0
     print(f"phase 14: 8 ranks (gloo, one card) ran {len(jobs)} jobs in "
           f"{spawn_s:.1f} s (host clock, start-up included) on {smi}")
@@ -2053,6 +2069,121 @@ def multi_rank(dev, smi) -> dict:
     if bad:
         fail(f"phase 14 (f): reprosum differs across rank counts: {bad}")
     shutil.rmtree(RANKS_ROOT, ignore_errors=True)
+    return out
+
+
+def sharded_state(dev, smi) -> dict:
+    """Phase 15: the whole coupled step with the state sharded across 8
+    spawned gloo ranks sharing the card (each rank builds the model whole,
+    keeps its tiles and steps them; every neighbour access is a tile-aware
+    shift, K1 runs on each padded tile through the wide-halo solve, K2 and
+    K3 on each tile padded by their read radius). For gx1pop_step() (K1 +
+    K3) and gx1pop_step(remap_kernel='auto') (K1 + K2) on 2x4 and 4x2
+    ranks, 2 steps each: every gathered leaf against 2 steps of one process
+    on this card (max abs error 0.0), K1 and the transport kernel launched
+    on every rank. Then the decomp suite through the CLI's test function
+    and the perf sweep across 1, 2, 4 and 8 ranks."""
+    import io
+    import shutil
+
+    from cice_tpu_torch import config as C
+    from cice_tpu_torch.cli import main as cli
+    from cice_tpu_torch.cli.perf import run_perf
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.state import state_leaves
+    from cice_tpu_torch.parallel import spawn
+
+    import torch
+    shutil.rmtree(RANKS_ROOT, ignore_errors=True)
+    os.makedirs(RANKS_ROOT)
+    kernels = {"fused_pallas": "k3_launches", "auto": "k2_launches"}
+    refs, jobs, keys = {}, [], []
+    for kernel in kernels:
+        cfg = C.gx1pop_step(remap_kernel=kernel)
+        one = Model(cfg, device=dev)
+        one.step()
+        one.step()
+        refs[kernel] = [x.detach().cpu().numpy()
+                        for x in state_leaves(one.state)]
+        del one
+        for shape in ((2, 4), (4, 2)):
+            jobs.append(("sharded_steps", dict(cfg=cfg, nsteps=2,
+                                               shape=shape, device="cuda"),
+                         8))
+            keys.append((kernel, f"{shape[0]}x{shape[1]}"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn.launch(jobs, 8, RANKS_ROOT, timeout=900.0,
+                       group_timeout=300.0)
+    spawn_s = time.perf_counter() - t0
+    print(f"phase 15: 8 ranks (gloo, one card) ran {len(jobs)} sharded "
+          f"runs of 2 steps at 320x384 in {spawn_s:.1f} s (host clock, "
+          f"start-up and each rank's whole-model build included) on {smi}")
+    out = {"spawn_s": spawn_s, "runs": {}}
+    for (kernel, mesh), r in zip(keys, res):
+        label = f"gx1pop_step {kernel} {mesh}"
+        if len({x["digest"] for x in r}) != 1:
+            fail(f"phase 15 {label}: the ranks' gathered states differ")
+        err = _max_abs(r[0]["out"], refs[kernel])
+        st = [x["stats"] for x in r]
+        n = st[0]["steps"]
+        per = lambda key, f=1.0: [f * x[key] / n for x in st]
+        ms = per("seconds", 1e3)
+        stg, wait, wire = (per("staged_seconds", 1e3),
+                           per("wait_seconds", 1e3),
+                           per("wire_seconds", 1e3))
+        rest = [a - b - c - d for a, b, c, d in zip(ms, stg, wait, wire)]
+        rec = dict(max_abs_err=err, tile=st[0]["tile"],
+                   k1_launches_per_rank=[x["k1_launches"] for x in st],
+                   flux_launches_per_rank=[x[kernels[kernel]] for x in st],
+                   messages_per_step=per("exchanges"),
+                   staged_bytes_per_step=per("staged_bytes"),
+                   ms_per_step=ms, staging_ms=stg, card_wait_ms=wait,
+                   gloo_ms=wire, rest_ms=rest)
+        out["runs"][label] = rec
+        rng = lambda v, f=".1f": f"{min(v):{f}}-{max(v):{f}}"
+        print(f"phase 15 {label} (tiles {rec['tile']}): max abs error {err} "
+              f"over {len(refs[kernel])} state leaves against 2 steps on one "
+              f"process; K1 launches per rank {rec['k1_launches_per_rank']}, "
+              f"{'K3' if kernel == 'fused_pallas' else 'K2'} launches per "
+              f"rank {rec['flux_launches_per_rank']} (2 steps); per step: "
+              f"messages {rng(rec['messages_per_step'], '.0f')}, bytes "
+              f"staged {rng(rec['staged_bytes_per_step'], '.0f')}, ms "
+              f"{rng(ms)} = staging copies {rng(stg)} + waits for the card "
+              f"{rng(wait)} + gloo calls {rng(wire)} + the rest {rng(rest)} "
+              f"(host clock) on {smi}")
+        if err != 0.0:
+            fail(f"phase 15 {label}: the sharded steps leave one process by "
+                 f"{err}")
+        if min(rec["k1_launches_per_rank"]) < 1 or \
+                min(rec["flux_launches_per_rank"]) < 1:
+            fail(f"phase 15 {label}: K1 or the transport kernel was not "
+                 f"launched on every rank's tile: {rec}")
+    shutil.rmtree(RANKS_ROOT, ignore_errors=True)
+
+    # the decomp suite's rows through the CLI's test (f64, the smoke grid)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["suite", "--name", "decomp", "--device", "cuda"])
+    text = buf.getvalue()
+    print("\n".join("phase 15 decomp: " + line.strip()
+                    for line in text.strip().splitlines()))
+    out["decomp"] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                         output=text)
+    if rc != 0 or text.count("largest deviation 0.0 of") != 4:
+        fail(f"phase 15: the decomp suite failed (rc {rc})")
+
+    # the perf sweep across ranks: the EVP on a sharded state
+    rows = []
+    t0 = time.perf_counter()
+    run_perf(sizes=((384, 320),), ndte=120, mesh_devices=(1, 2, 4, 8),
+             weak_tile=(192, 160), device="cuda", n_rep=1,
+             out=lambda line: (rows.append(json.loads(line)),
+                               print(f"phase 15 perf: {line}")))
+    out["perf"] = dict(rows=rows, seconds=time.perf_counter() - t0)
+    print(f"phase 15 perf --mesh 1,2,4,8 ({len(rows)} rows, one timed solve "
+          f"each) in {out['perf']['seconds']:.1f} s on {smi}")
     return out
 
 
@@ -2461,6 +2592,18 @@ def main() -> int:
     a7 = coupling_and_io(dev, smi, reset_counters, read_counters)
     # ---- runs across ranks on the one card ------------------------------
     ranks = multi_rank(dev, smi)
+    # ---- the whole step with the state sharded across ranks ------------
+    sharded = sharded_state(dev, smi)
+    runs15 = sharded["runs"]
+    on_tiles = {
+        "evp_fused": {label: run["k1_launches_per_rank"]
+                      for label, run in runs15.items()},
+        "transport_fused": {label: run["flux_launches_per_rank"]
+                            for label, run in runs15.items()
+                            if " auto " in label},
+        "tracer_fluxes": {label: run["flux_launches_per_rank"]
+                          for label, run in runs15.items()
+                          if " fused_pallas " in label}}
     on_a7 = {k: {p: v[k] for p, v in a7["launches"].items()}
              for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
     on_base = {k: {r: base[r]["launches"][k]
@@ -2512,7 +2655,8 @@ def main() -> int:
                               "k1_launches_per_solve", "ms_per_solve",
                               "one_process")}
              for label, run in ranks["runs"].items()
-             if "k1_launches_per_rank" in run}},
+             if "k1_launches_per_rank" in run},
+         "sharded_state_launches_per_rank": on_tiles["evp_fused"]},
         {"name": "transport_fused", "route": "cuda",
          "source": "cice_tpu_torch/csrc/transport_fused.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:653",
@@ -2535,7 +2679,8 @@ def main() -> int:
                      "max_abs_err": cols["k2"]["err"],
                      "launches": on_cols["transport_fused"]},
          "bgcz": on_bgcz("K2", "transport_fused"),
-         "coupling_io": {"launches": on_a7["transport_fused"]}},
+         "coupling_io": {"launches": on_a7["transport_fused"]},
+         "sharded_state_launches_per_rank": on_tiles["transport_fused"]},
         {"name": "tracer_fluxes", "route": "cuda",
          "source": "cice_tpu_torch/csrc/tracer_fluxes.cu",
          "replaces": "cice_tpu/kernels/remap_pallas.py:261",
@@ -2551,7 +2696,8 @@ def main() -> int:
                    "bound_ms": cgrid["k3_cgrid"]["bound"][0],
                    "max_abs_err": cgrid["k3_cgrid"]["err"]},
          "bgcz": on_bgcz("K3", "tracer_fluxes"),
-         "coupling_io": {"launches": on_a7["tracer_fluxes"]}},
+         "coupling_io": {"launches": on_a7["tracer_fluxes"]},
+         "sharded_state_launches_per_rank": on_tiles["tracer_fluxes"]},
     ]
     out = {"kernels": results}
     # ridging passes on the main path's last state and deformation
@@ -2583,7 +2729,7 @@ def main() -> int:
                        transport_checks=tc, restart_history=rh,
                        baseline=base, cgrid=cgrid, columns=cols,
                        biogeochemistry=bgc, coupling_io=a7,
-                       multi_rank=ranks), f,
+                       multi_rank=ranks, sharded_state=sharded), f,
                   indent=1)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,8 @@ cyclic, open, closed and tripole (U- or T-fold) boundaries. The CLI
 among them the gx3pop, gx1pop and tx1pop baselines on fixtures it writes
 (io/fixtures.py). On the card a kernel that cannot take a grid (tripole,
 y-cyclic) or a dtype raises; a run names the plain engines instead.
+Across ranks (parallel/), `Model(cfg, mesh=..., shard=True)` steps each
+rank's tiles of the state, bit for bit with one process.
 """
 
 from .config import Config, gx1pop_dyn, gx1pop_step

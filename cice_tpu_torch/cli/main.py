@@ -5,10 +5,11 @@ the statistical QC comparison and plots.
     python -m cice_tpu_torch.cli run   [--opts a,b] [--set k=v ...] [--steps N]
         [--profile DIR]
     python -m cice_tpu_torch.cli case  --dir DIR [--opts a,b] [--set k=v ...]
-    python -m cice_tpu_torch.cli test  --type smoke|restart|baseline \
+    python -m cice_tpu_torch.cli test  --type smoke|restart|decomp|baseline \
         [--opts a,b] [--set k=v ...] [--bgen DIR] [--bcmp DIR]
     python -m cice_tpu_torch.cli suite --name quick [--set k=v ...]
     python -m cice_tpu_torch.cli perf  [--sizes 192x160,...] [--ndte 120]
+        [--mesh 1,2,4,8]
     python -m cice_tpu_torch.cli qc DIR_A DIR_B [--var hi]
     python -m cice_tpu_torch.cli plot2d FILE... [-f aice]
     python -m cice_tpu_torch.cli timeseries DIAG.json [-k key]
@@ -17,13 +18,16 @@ the statistical QC comparison and plots.
 sets and suites are the JAX package's tables (the reference's set_nml.*
 fragments and tests/*.ts); "{FIX}" resolves to the port's fixture root
 ($CICE_TPU_TORCH_FIXTURES), where the gx3/gx1/tx1 baseline fixtures are
-written on first use; `python -m cice_tpu_torch` is the same CLI. What
-needs the state sharded across ranks (ROADMAP A8: `test --type decomp`,
-`perf --mesh` above 1) raises NotImplementedError naming it; a suite
-counts such a row as failed and goes on. A run of one process has no
-mesh: `evpwide` then runs the one-program EVP solve and `iopio` writes
-its restarts as one shard per array, as the JAX package does on one
-device.
+written on first use; `python -m cice_tpu_torch` is the same CLI. A row of a
+suite that raises counts as failed and the suite goes on. A run of one
+process has no mesh: `evpwide` then runs the one-program EVP solve and
+`iopio` writes its restarts as one shard per array, as the JAX package
+does on one device.
+
+`test --type decomp` spawns 8 ranks joined by gloo (on the card they
+share it) and runs 2 steps with the state sharded on 2x4 and on 4x2 ranks
+against 2 steps of one process, in f64; `perf --mesh 1,2,4,8` times the
+EVP on a sharded state over that many spawned ranks.
 
 `run --profile DIR` traces the time loop with torch.profiler (CPU, and
 CUDA where the model runs on the card) and writes a Chrome trace into
@@ -610,6 +614,71 @@ def finish_baseline(m, label: str, archive_dir: str | None = None,
     return out
 
 
+def _leaf_names(state) -> list:
+    """Names of `state_leaves(state)`, in their order."""
+    import dataclasses
+    from ..model.state import State
+    names = []
+    for f in dataclasses.fields(State):
+        if f.name == "trcrn":
+            names += [f"trcrn.{k}" for k in sorted(state.trcrn)]
+        else:
+            names.append(f.name)
+    return names
+
+
+def _test_decomp(cfg, device) -> bool:
+    """Decomposition invariance (test_decomp.script / decomp_suite.ts; the
+    JAX package's `_test_decomp`): 2 coupled steps on one process against
+    the state sharded on 2x4 and on 4x2 ranks, f64. The 8 ranks are
+    spawned processes joined by gloo, on `device` (on the card they share
+    it). The oracle is the JAX package's: every float leaf within 1e-4 of
+    its largest value (leaves below 1e-6 skipped), ints and bools equal.
+    The ranks do the same operations on the same values as the one
+    process, so the largest deviation printed is expected to be 0.0."""
+    import tempfile
+
+    import numpy as np
+
+    from ..model.driver import Model
+    from ..model.state import state_leaves
+    from ..parallel import spawn
+    cfg = cfg.with_overrides(dtype="float64")
+    one = Model(cfg, device=device)
+    one.run(2)
+    ref = [x.detach().cpu().numpy() for x in state_leaves(one.state)]
+    names = _leaf_names(one.state)
+    shapes = ((2, 4), (4, 2))
+    with tempfile.TemporaryDirectory() as wd:
+        res = spawn.launch([("sharded_steps", dict(
+            cfg=cfg, nsteps=2, shape=shape, device=str(device)), 8)
+            for shape in shapes], 8, wd)
+    ok = True
+    for shape, r in zip(shapes, res):
+        if len({x["digest"] for x in r}) != 1:
+            print(f"  decomp {shape[0]}x{shape[1]}: the ranks' gathered "
+                  "states differ")
+            ok = False
+        worst = 0.0
+        for name, a, b in zip(names, r[0]["out"], ref):
+            if b.dtype.kind == "f":
+                scale = float(np.abs(b).max()) if b.size else 0.0
+                if scale > 1e-6:
+                    d = float(np.abs(a - b).max())
+                    worst = max(worst, d / scale)
+                    if d > 1e-4 * scale:
+                        print(f"  decomp mismatch {name}: {d:.3e} vs "
+                              f"scale {scale:.3e}")
+                        ok = False
+            elif not np.array_equal(a, b):
+                print(f"  decomp mismatch {name} (int/bool)")
+                ok = False
+        print(f"  decomp {shape[0]}x{shape[1]} against one process: "
+              f"largest deviation {worst!r} of the field's scale over "
+              f"{len(ref)} state leaves")
+    return ok
+
+
 def _test_baseline(cfg, label, device, archive_dir=None,
                    compare_dir=None) -> bool:
     m = baseline_model(cfg, device)
@@ -631,10 +700,6 @@ def _default_test_cfg(args, cfg):
 
 
 def cmd_test(args):
-    if args.type == "decomp":
-        raise NotImplementedError(
-            "test --type decomp compares whole steps with the state sharded "
-            "across ranks (ROADMAP A8: multi-GPU, third part)")
     cfg = _default_test_cfg(args, build_config(args))
     t0 = time.time()
     label = (args.opts or "base").replace(",", "+")
@@ -660,8 +725,8 @@ def cmd_test(args):
             print(f"    step {i} {k}: baseline {va!r} vs run {vb!r}")
         return 0 if not errs else 1
     else:
-        ok = {"smoke": _test_smoke,
-              "restart": _test_restart}[args.type](cfg, args.device)
+        ok = {"smoke": _test_smoke, "restart": _test_restart,
+              "decomp": _test_decomp}[args.type](cfg, args.device)
     print(f"{'PASS' if ok else 'FAIL'} test_{args.type} "
           f"({time.time() - t0:.1f}s)")
     return 0 if ok else 1
@@ -825,8 +890,8 @@ def main(argv=None):
                         help="comma list of NYxNX grid sizes")
     p_perf.add_argument("--ndte", type=int, default=120)
     p_perf.add_argument("--mesh", default="1",
-                        help="device counts of the scaling sweeps (above "
-                        "1: ROADMAP A8)")
+                        help="rank counts of the scaling sweeps (above 1: "
+                        "spawned ranks, the state sharded)")
     p_perf.add_argument("--weak-tile", default="192x160",
                         help="per-device tile of the weak-scaling sweep")
     p_perf.add_argument("--device", default="cuda",

@@ -10,17 +10,25 @@ the axes are
   strong — the second size on a growing number of cards,
   weak   — a fixed tile per card on a growing number of cards.
 
-Each row times the B-grid EVP solve (ndte subcycles) through K1
-(`kernels.evp.evp_solve_fused`: on the card the fused kernel, whose route,
-`persistent` or `stream`, the row names; on the CPU its plain version) and
-prints one JSON line. Scaling beyond one card waits for the third part of
-ROADMAP A8 (the state sharded across ranks): a device count above 1
-raises, and nothing switches to CPU devices.
+Each row times the B-grid EVP solve (ndte subcycles) and prints one JSON
+line. On one rank the solve goes through K1 (`kernels.evp.evp_solve_fused`:
+on the card the fused kernel, whose route, `persistent` or `stream`, the
+row names; on the CPU its plain version). On n > 1 ranks (spawned
+processes, parallel/spawn.py) the EVP inputs are sharded across a
+near-square mesh of them, and each row of the JAX package's two becomes
+one here: 'standard_2d', the plain loop through the tile-aware shift (a
+message per neighbour access, what GSPMD partitions), and 'wide_halo', the
+wide-halo solve on the tiles (K1 on each padded tile on the card, k
+subcycles per exchange). The ranks are joined by gloo where they share a
+card (or run on the CPU) and by NCCL where each has its own; the row names
+the backend and the cards. Nothing switches to CPU devices.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -92,20 +100,47 @@ def evp_throughput(ny, nx, ndte=120, n_rep=5, device="cuda"):
     return ny * nx * ndte / best, best
 
 
+def _mesh_runs(runs, ndte, device, n_rep, k_fuse=8):
+    """{(sweep, n, algo): (best seconds, mesh shape, backend)} of the EVP
+    on a sharded state for each (sweep, n, (ny, nx)) of `runs`, on
+    spawned ranks (one launch for all)."""
+    from ..parallel import spawn
+    from ..parallel.mesh import near_square
+    world = max(n for _, n, _ in runs)
+    cuda = torch.device(device).type == "cuda"
+    own_cards = cuda and torch.cuda.device_count() >= world
+    backend = "nccl" if own_cards else "gloo"
+    jobs, keys = [], []
+    with tempfile.TemporaryDirectory() as wd:
+        for sweep, n, (ny, nx) in runs:
+            args, kw = _setup(ny, nx, ndte, "cpu")
+            path = spawn.save(spawn.b_problem_to_numpy(*args, **kw),
+                              os.path.join(wd, f"{sweep}_{n}.pkl"))
+            for algo in ("standard_2d", "wide_halo"):
+                jobs.append(("evp_sharded", dict(
+                    problem=path, shape=near_square(n), k_fuse=k_fuse,
+                    algo="plain" if algo == "standard_2d" else "wide",
+                    device=str(device), repeat=n_rep + 1), n))
+                keys.append((sweep, n, algo))
+        # ranks outside a smaller job wait for it at the next job's group
+        res = spawn.launch(jobs, world, wd, backend=backend,
+                           timeout=3600.0, group_timeout=600.0)
+    return {k: (max(x["stats"]["seconds"] for x in r if x is not None),
+                near_square(k[1]), backend)
+            for k, r in zip(keys, res)}
+
+
 def run_perf(sizes=((192, 160), (384, 320), (768, 640)), ndte=120,
              mesh_devices=(1,), weak_tile=(192, 160), out=print,
              device="cuda", n_rep=5):
-    """Run the sweeps on one device; returns the rows. A device count above
-    1 in `mesh_devices` raises NotImplementedError (ROADMAP A8)."""
-    if max(mesh_devices) > 1:
-        raise NotImplementedError(
-            f"perf across {max(mesh_devices)} devices times the whole step "
-            "with the state sharded across ranks (ROADMAP A8: multi-GPU, "
-            "third part); run with --mesh 1")
+    """Run the sweeps; returns the rows. Rank counts above 1 in
+    `mesh_devices` run on spawned ranks with the state sharded."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("perf on 'cuda' needs a CUDA device; pass "
                            "device='cpu' for the plain version on the CPU")
     rows = []
+    cards = (min(torch.cuda.device_count(), max(mesh_devices))
+             if torch.device(device).type == "cuda" else 0)
 
     def emit(row):
         rows.append(row)
@@ -117,10 +152,35 @@ def run_perf(sizes=((192, 160), (384, 320), (768, 640)), ndte=120,
               "ndte": ndte, "device": str(device),
               "route": k1_route(ny, nx, device), "s_per_dynstep": t,
               "Mptsub_s": tput / 1e6, **extra})
+        return tput
 
     for ny, nx in sizes:
         row("sizes", ny, nx)
-    ny, nx = sizes[min(1, len(sizes) - 1)]
-    row("strong", ny, nx, mesh="1x1", efficiency=1.0)
-    row("weak", *weak_tile, mesh="1x1", efficiency=1.0)
+    strong = sizes[min(1, len(sizes) - 1)]
+    ty, tx = weak_tile
+    from ..parallel.mesh import near_square
+    grids = {"strong": lambda n: strong,
+             "weak": lambda n: (ty * near_square(n)[0],
+                                tx * near_square(n)[1])}
+    many = [n for n in mesh_devices if n > 1]
+    timed = _mesh_runs([(sw, n, grids[sw](n)) for sw in grids
+                        for n in many], ndte, device, n_rep) if many else {}
+    for sweep in grids:
+        anchor = None
+        for n in mesh_devices:
+            ny, nx = grids[sweep](n)
+            if n == 1:
+                anchor = row(sweep, ny, nx, mesh="1x1", efficiency=1.0,
+                             backend=None, cards=min(cards, 1))
+                continue
+            for algo in ("standard_2d", "wide_halo"):
+                t, (py, px), backend = timed[(sweep, n, algo)]
+                tput = ny * nx * ndte / t
+                emit({"sweep": sweep, "algo": algo, "grid": f"{ny}x{nx}",
+                      "devices": n, "mesh": f"{py}x{px}", "ndte": ndte,
+                      "device": str(device), "backend": backend,
+                      "cards": cards, "s_per_dynstep": t,
+                      "Mptsub_s": tput / 1e6,
+                      "efficiency": (tput / (anchor * n) if anchor
+                                     else None)})
     return rows

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
 
 # scavenging ratios per aerosol species (fraction of the layer burden
 # removed per unit fractional melt; icepack kscav defaults: BC, BC, dust x4)
@@ -91,7 +92,7 @@ def step_aerosols(cfg, dt, *, aicen, vicen, vsnon, aerosno, aeroice,
         sn[i_int] = torch.where(mask, sn_int, sn[i_int])
         ic[i_ssl] = torch.where(mask, ic_ssl, ic[i_ssl])
         ic[i_int] = torch.where(mask, ic_int, ic[i_int])
-        faero_ocn.append(torch.sum(torch.where(mask, aicen * (rm_s + rm_i),
+        faero_ocn.append(lsum(torch.where(mask, aicen * (rm_s + rm_i),
                                                0.0), dim=0) / dt)
     return (torch.stack(sn, dim=1), torch.stack(ic, dim=1),
             torch.stack(faero_ocn))
@@ -129,7 +130,7 @@ def step_isotopes(cfg, dt, *, aicen, vsnon, isosno, isoice, fsnow, melts,
         i = i + xfer
         sn[k] = torch.where(mask, s, sn[k])
         ic[k] = torch.where(mask, i, ic[k])
-        fiso_ocn.append(torch.sum(torch.where(mask, aicen * rel, 0.0),
+        fiso_ocn.append(lsum(torch.where(mask, aicen * rel, 0.0),
                                   dim=0) / dt)
     return (torch.stack(sn, dim=1), torch.stack(ic, dim=1),
             torch.stack(fiso_ocn))

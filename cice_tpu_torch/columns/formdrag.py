@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
 
 # Tsamados et al. (2014) table of constants
 CSA = 0.0005          # skin drag, atmosphere
@@ -173,16 +174,16 @@ def drag_from_state(state, cfg) -> DragCoeffs:
     def agg(name):
         if name not in trc:
             return None
-        return torch.sum(trc[name] * state.aicen, dim=0) / ai
+        return lsum(trc[name] * state.aicen, dim=0) / ai
 
     lf = None
     if "fsd" in trc and cfg.tracers.tr_fsd:
         from .fsd import fsd_bounds
         _, _, mid = fsd_bounds(cfg.domain.nfsd)
         r = torch.as_tensor(mid, dtype=ai.dtype, device=ai.device)
-        f = torch.sum(trc["fsd"] * state.aicen[:, None], dim=0) / ai
-        lf = 2.0 * torch.sum(f * r[:, None, None], dim=0) \
-            / torch.clamp(torch.sum(f, dim=0), min=1e-11)
+        f = lsum(trc["fsd"] * state.aicen[:, None], dim=0) / ai
+        lf = 2.0 * lsum(f * r[:, None, None], dim=0) \
+            / torch.clamp(lsum(f, dim=0), min=1e-11)
         lf = torch.clamp(lf, 8.0, 3.0e4)
     return neutral_drag_coeffs(
         aice=state.aice, vice=state.vice, vsno=state.vsno,

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
-from ..ops import clip
+from ..ops import clip, lsum
 
 # 12-bin floe radius boundaries (m) of Roach et al. (2018) (nfsd=12); other
 # nfsd values take the first nfsd+1 bounds or a power-law extension
@@ -50,7 +50,7 @@ def fsd_cleanup(fsd, aicen):
     all-small-floes distribution."""
     del aicen
     fsd = torch.clamp(fsd, min=0.0)
-    tot = torch.sum(fsd, dim=1, keepdim=True)
+    tot = lsum(fsd, dim=1, keepdim=True)
     ok = tot > cst.puny
     return torch.where(ok, fsd / torch.clamp(tot, min=cst.puny),
                        _first_bin(fsd))
@@ -156,7 +156,7 @@ def wave_frac_histogram(E, dwavefreq, wavefreq, hbar, nfsd: int):
     W = []
     for n in range(nfsd):
         inbin = (gap > float(lo[n])) & (gap <= float(hi_b[n]))
-        W.append(torch.sum(torch.where(inbin, gap, 0.0), dim=0))
+        W.append(lsum(torch.where(inbin, gap, 0.0), dim=0))
     return torch.stack(W)                                  # (nfsd, ny, nx)
 
 
@@ -175,8 +175,8 @@ def fsd_wave_fracture(cfg, dt, fsd, aicen, vicen, hs_wave, Tp_wave,
     if wave_spectrum is not None:
         from ..model.forcing import wave_frequencies
         # flexural plate thickness = the ice thickness vice/aice
-        hbar = torch.sum(vicen, dim=0) / \
-            torch.clamp(torch.sum(aicen, dim=0), min=cst.puny)
+        hbar = lsum(vicen, dim=0) / \
+            torch.clamp(lsum(aicen, dim=0), min=cst.puny)
         f, df = wave_frequencies(fsd.dtype, fsd.device)
         W = wave_frac_histogram(wave_spectrum, df, f, hbar, nfsd)
         active = hs_wave > 0.01
@@ -230,7 +230,7 @@ def fsd_wave_fracture(cfg, dt, fsd, aicen, vicen, hs_wave, Tp_wave,
 def _fsd_agg(fsd, aicen):
     """Cell aggregate of the joint distribution: (nfsd, ny, nx) area per
     floe-size bin."""
-    return torch.sum(fsd * aicen[:, None], dim=0)
+    return lsum(fsd * aicen[:, None], dim=0)
 
 
 def step_dyn_wave(cfg, dt, *, fsd, aicen, vicen, hs_wave, Tp_wave,

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
 from .mushy import liquid_fraction, temperature_mush
 
 GRAVIT = 9.80665        # m/s^2
@@ -79,6 +80,6 @@ def update_hbrine(dt, *, aicen, vicen, vsnon, fbri, qice, sice,
     newice = (~(fbri > cst.puny)) & mask
     fbri_new = torch.where(newice, FBRI_INIT, fbri_new)
 
-    hbri = torch.sum(torch.where(mask, aicen * fbri_new * hin, 0.0), dim=0)
+    hbri = lsum(torch.where(mask, aicen * fbri_new * hin, 0.0), dim=0)
     return HbrineOut(fbri=fbri_new, hbri=hbri,
                      darcy_V=torch.where(mask, darcy_V, 0.0))

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from .. import constants as cst
-from ..ops import clip
+from ..core.reductions import agreed
+from ..ops import clip, lmean, lsum
 
 
 def category_bounds(ncat: int, kcatbound: int = 1, nilyr: int = 7,
@@ -164,7 +165,7 @@ def _packed(trcrn, registry):
 # ---------------------------------------------------------------------------
 
 def aggregate_area(aicen):
-    return torch.sum(aicen, dim=0)
+    return lsum(aicen, dim=0)
 
 
 def compute_tracers(aicen, vicen, vsnon, trcrn, registry):
@@ -172,15 +173,15 @@ def compute_tracers(aicen, vicen, vsnon, trcrn, registry):
     aggregate weight."""
     from ..model.state import DEP_AICE, DEP_VICE, DEP_VSNO
     out = {}
-    denom = {DEP_AICE: aicen.sum(0), DEP_VICE: vicen.sum(0),
-             DEP_VSNO: vsnon.sum(0)}
+    denom = {DEP_AICE: lsum(aicen), DEP_VICE: lsum(vicen),
+             DEP_VSNO: lsum(vsnon)}
     wgt = {DEP_AICE: aicen, DEP_VICE: vicen, DEP_VSNO: vsnon}
     for spec in registry:
         w = wgt[spec.depend]
         t = trcrn[spec.name]
         if t.ndim == 4:
             w = w[:, None]
-        num = torch.sum(t * w, dim=0)
+        num = lsum(t * w, dim=0)
         den = denom[spec.depend]
         den = den[None] if t.ndim == 4 else den
         out[spec.name] = torch.where(
@@ -325,7 +326,7 @@ def linear_itd_remap(aicen, vicen, vsnon, trcrn, hin_max, hicen_old,
             trm if packed_in else unpack_tracers(trm, registry))
 
 
-def rebin(aicen, vicen, vsnon, trcrn, hin_max, registry):
+def rebin(aicen, vicen, vsnon, trcrn, hin_max, registry, mesh=None):
     """Make sure category mean thicknesses lie within bounds by shifting
     whole parcels to the correct neighbour category. One sweep up + one
     sweep down; in-bounds afterwards for adjacent spills."""
@@ -342,7 +343,7 @@ def rebin(aicen, vicen, vsnon, trcrn, hin_max, registry):
         tracer merge runs only when some parcel moves anywhere (one host
         read): after the linear ITD remap that is rare, and an idle merge
         would still rewrite every cell as t*w/w, not bit-for-bit t."""
-        if bool(moving.any()):
+        if bool(agreed(moving.any(), mesh)):
             wsrc = _dep_weight(didx, a[frm], v[frm], s[frm])
             wdst = _dep_weight(didx, a[to], v[to], s[to])
             wsm = torch.where(moving[None], wsrc, 0.0)
@@ -375,25 +376,25 @@ def cleanup_itd(aicen, vicen, vsnon, trcrn, registry, *, puny=cst.puny,
     element {fresh, fsalt, fhocn}) so the freshwater/heat budgets stay
     closed; without dt the 4-tuple is returned."""
     keep = (aicen > puny) & (vicen > 0.0)
-    vice_rm = torch.sum(torch.where(keep, 0.0, vicen), dim=0)
-    vsno_rm = torch.sum(torch.where(keep, 0.0, vsnon), dim=0)
+    vice_rm = lsum(torch.where(keep, 0.0, vicen), dim=0)
+    vsno_rm = lsum(torch.where(keep, 0.0, vsnon), dim=0)
     packed_in = not isinstance(trcrn, dict)
     if packed_in:
         off = name_offsets(registry)
         qice_m = qsno_m = None
         if "qice" in off:
             o, n = off["qice"]
-            qice_m = trcrn[:, o:o + n].mean(dim=1)
+            qice_m = lmean(trcrn[:, o:o + n], 1)
         if "qsno" in off:
             o, n = off["qsno"]
-            qsno_m = trcrn[:, o:o + n].mean(dim=1)
+            qsno_m = lmean(trcrn[:, o:o + n], 1)
     else:
-        qice_m = trcrn["qice"].mean(dim=1) if "qice" in trcrn else None
-        qsno_m = trcrn["qsno"].mean(dim=1) if "qsno" in trcrn else None
+        qice_m = lmean(trcrn["qice"], 1) if "qice" in trcrn else None
+        qsno_m = lmean(trcrn["qsno"], 1) if "qsno" in trcrn else None
     eice_rm = esno_rm = None
     if dt is not None and qice_m is not None and qsno_m is not None:
-        eice_rm = torch.sum(torch.where(keep, 0.0, qice_m * vicen), dim=0)
-        esno_rm = torch.sum(torch.where(keep, 0.0, qsno_m * vsnon), dim=0)
+        eice_rm = lsum(torch.where(keep, 0.0, qice_m * vicen), dim=0)
+        esno_rm = lsum(torch.where(keep, 0.0, qsno_m * vsnon), dim=0)
     aicen = torch.where(keep, aicen, 0.0)
     vicen = torch.where(keep, vicen, 0.0)
     vsnon = torch.where(keep, vsnon, 0.0)
@@ -403,7 +404,7 @@ def cleanup_itd(aicen, vicen, vsnon, trcrn, registry, *, puny=cst.puny,
         trcrn = {k: torch.where(keep[:, None] if t.ndim == 4 else keep,
                                 t, 0.0)
                  for k, t in trcrn.items()}
-    aice = torch.sum(aicen, dim=0)
+    aice = lsum(aicen, dim=0)
     scale = torch.where(aice > 1.0, 1.0 / torch.clamp(aice, min=puny), 1.0)
     aicen = aicen * scale[None]
     if dt is None:

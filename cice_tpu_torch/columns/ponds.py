@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
 
 TP_FRZ = -2.0          # pond refreezing onset temperature Tp (degC)
 KICE_LID = 2.03        # conductivity of the refrozen lid (W/m/K, fresh ice)
@@ -312,7 +313,7 @@ def pond_reservoir_mass(trcrn, aicen, lvl: bool):
     liquid = cst.rhofresh * apnd * trcrn["hpnd"]
     lid = cst.rhoi * apnd * trcrn["ipnd"] if "ipnd" in trcrn \
         else torch.zeros_like(apnd)
-    return torch.sum(aicen * norm * (liquid + lid), dim=0)
+    return lsum(aicen * norm * (liquid + lid), dim=0)
 
 
 def pond_exposure(cfg, *, aicen, vsnon, trcrn):

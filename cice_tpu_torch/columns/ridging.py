@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
+from ..core.reductions import agreed
 from .itd import (cleanup_itd, dep_index, name_offsets, pack_tracers, rebin,
                   unpack_tracers)
 
@@ -129,7 +131,7 @@ def _ridge_tables(registry, hin_max, dtype, device):
 
 
 def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
-              registry):
+              registry, mesh=None):
     """One ridging step. Closing rate from dynamics:
     rdg_conv = -min(divu,0), rdg_shear = Cs*(Delta - |divu|)/2. Passes
     repeat (at least one, at most NITER_RDG) while some cell still has
@@ -167,8 +169,8 @@ def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
     closing_rem = closing_net * dt         # total fractional area to close
     npass = 0
     while npass < 1 or (npass < NITER_RDG
-                        and bool(closing_rem.max() > 1e-9)):
-        aice = torch.sum(aicen, dim=0)
+                        and bool(agreed(closing_rem.max(), mesh) > 1e-9)):
+        aice = lsum(aicen, dim=0)
         aice0 = torch.clamp(1.0 - aice, 0.0, 1.0)
         rp = ridge_prep(aicen, vicen, aice0, d.mu_rdg)
         if npass == 0:                  # diagnostics snapshot, first pass
@@ -202,8 +204,8 @@ def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
 
         # overlap of donor n's exponential ridge pdf with receiver m's bin
         fa, fv = _exp_overlap(rp.hrmin[:, None], rp.hrexp[:, None], lo, hi_b)
-        fa_n = fa / torch.clamp(fa.sum(dim=1, keepdim=True), min=cst.puny)
-        fv_n = fv / torch.clamp(fv.sum(dim=1, keepdim=True), min=cst.puny)
+        fa_n = fa / torch.clamp(lsum(fa, 1, keepdim=True), min=cst.puny)
+        fv_n = fv / torch.clamp(lsum(fv, 1, keepdim=True), min=cst.puny)
         da = area_r[:, None] * fa_n           # (n, m, ny, nx)
         dv = vrdg[:, None] * fv_n
         ds = srdg[:, None] * fa_n
@@ -211,9 +213,9 @@ def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
         a_rm = aicen - ardg                   # post-removal donor state
         v_rm = vicen - vrdg
         s_rm = vsnon - srdg
-        da_r = da.sum(dim=0)                  # per-receiver gains (m,ny,nx)
-        dv_r = dv.sum(dim=0)
-        ds_r = ds.sum(dim=0)
+        da_r = lsum(da)                  # per-receiver gains (m,ny,nx)
+        dv_r = lsum(dv)
+        ds_r = lsum(ds)
 
         # packed merge: u[n,T] = t[n,T] * (dep-selected donor pool amount);
         # the receiver's contribution is u contracted over donors with the
@@ -235,9 +237,9 @@ def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
             den > cst.puny,
             (trp * wr + contrib) / torch.clamp(den, min=cst.puny), trp)
 
-        dardg1 = dardg1 + ardg.sum(dim=0)
-        dvirdg = dvirdg + vrdg.sum(dim=0)
-        dardg2 = dardg2 + area_r.sum(dim=0)
+        dardg1 = dardg1 + lsum(ardg)
+        dvirdg = dvirdg + lsum(vrdg)
+        dardg2 = dardg2 + lsum(area_r)
         dardg1n = dardg1n + ardg
         dardg2n = dardg2n + da_r
         dvirdgn = dvirdgn + dv_r
@@ -245,13 +247,13 @@ def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
         # doubling regime; their receiver-side gains count as rafted ice
         hi_d = torch.where(have, vicen / aicen_p, 0.0)
         raft_d = (hi_d < MAXRAFT)[:, None]
-        araftn = araftn + torch.where(raft_d, da, 0.0).sum(dim=0)
-        vraftn = vraftn + torch.where(raft_d, dv, 0.0).sum(dim=0)
+        araftn = araftn + lsum(torch.where(raft_d, da, 0.0))
+        vraftn = vraftn + lsum(torch.where(raft_d, dv, 0.0))
         # pond water riding on ridged donor area drains to the ocean
         if have_pond:
             apnd_d = trp[:, off["apnd"][0]]
             hpnd_d = trp[:, off["hpnd"][0]]
-            dpnd_ridge = dpnd_ridge + torch.sum(
+            dpnd_ridge = dpnd_ridge + lsum(
                 ardg * torch.clamp(apnd_d, 0.0, 1.0)
                 * torch.clamp(hpnd_d, min=0.0), dim=0)
 
@@ -263,7 +265,7 @@ def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
         npass += 1
 
     aicen, vicen, vsnon, trp = rebin(aicen, vicen, vsnon, trp, hin_max,
-                                     registry)
+                                     registry, mesh)
     aicen, vicen, vsnon, trp, fclean = cleanup_itd(aicen, vicen, vsnon,
                                                    trp, registry, dt=dt)
     trcrn = unpack_tracers(trp, registry)

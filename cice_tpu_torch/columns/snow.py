@@ -17,7 +17,7 @@ import math
 import torch
 
 from .. import constants as cst
-from ..ops import clip
+from ..ops import clip, lsum
 
 # dry metamorphism e-folding time toward the temperature-dependent
 # equilibrium radius (s); wet metamorphism rate (Brun 1989)
@@ -135,7 +135,7 @@ def step_snow(cfg, dt, *, vsnon, aicen, trcrn, Tsno, melts, frain, fsnow,
         dt, smice=smice, smliq=smliq, Tsno=Tsno[:, None],
         melts_lyr=melts[:, None] / nslyr, frain=frain[None] / nslyr,
         fsnow=fsnow[None], aicen=aicen[:, None])
-    meltsliq = torch.sum(drain, dim=1)
+    meltsliq = lsum(drain, dim=1)
 
     # snowpack temperature-gradient proxy: surface at Tsno, base near 0C
     Tgrd = torch.abs(Tsno[:, None]) / torch.clamp(hslyr[:, None] * nslyr,

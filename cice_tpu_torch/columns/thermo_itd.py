@@ -13,6 +13,8 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as cst
+from ..core.halo import tile_mesh
+from ..ops import lmean, lsum
 from .itd import (cleanup_itd, linear_itd_remap, name_offsets, pack_tracers,
                   rebin, unpack_tracers, vicen_safe_h)
 from .thermo_vertical import bl99_salinity, enthalpy_ice, melting_temps
@@ -48,7 +50,7 @@ def add_new_ice(aicen, vicen, vsnon, trcrn, *, frzmlt, Tf, dt, hin_max,
     enthalpy of new ice at the freezing temperature and the initial
     salinity profile. `trcrn` is the tracer dict or the packed
     (ncat, NT, ny, nx) stack."""
-    aice = torch.sum(aicen, dim=0)
+    aice = lsum(aicen, dim=0)
     aice0 = torch.clamp(1.0 - aice, 0.0, 1.0)
 
     efrz = torch.clamp(frzmlt, min=0.0) * dt
@@ -140,8 +142,8 @@ def lateral_melt(aicen, vicen, vsnon, trcrn, *, frzmlt, Tbot, sst, Tf, dt,
     rside = torch.where(frzmlt < 0.0, rside, 0.0)
 
     dt_i = 1.0 / dt
-    vice_rm = torch.sum(vicen, dim=0) * rside
-    vsno_rm = torch.sum(vsnon, dim=0) * rside
+    vice_rm = lsum(vicen, dim=0) * rside
+    vsno_rm = lsum(vsnon, dim=0) * rside
     if isinstance(trcrn, dict):
         qice = trcrn["qice"]
         qsno = trcrn["qsno"]
@@ -152,8 +154,8 @@ def lateral_melt(aicen, vicen, vsnon, trcrn, *, frzmlt, Tbot, sst, Tf, dt,
         o, n = off["qsno"]
         qsno = trcrn[:, o:o + n]
     nilyr = qice.shape[1]
-    eice = torch.sum(qice.mean(dim=1) * vicen, dim=0) * rside   # J/m^2 (<0)
-    esno = torch.sum(qsno.mean(dim=1) * vsnon, dim=0) * rside
+    eice = lsum(lmean(qice, 1) * vicen, dim=0) * rside   # J/m^2 (<0)
+    esno = lsum(lmean(qsno, 1) * vsnon, dim=0) * rside
     fhocn = (eice + esno) * dt_i
     freshn = (cst.rhoi * vice_rm + cst.rhos * vsno_rm) * dt_i
     salin = bl99_salinity(nilyr)
@@ -170,8 +172,10 @@ def lateral_melt(aicen, vicen, vsnon, trcrn, *, frzmlt, Tbot, sst, Tf, dt,
 def step_therm2(cfg, grid, aicen, vicen, vsnon, trcrn, *, hicen_old,
                 frzmlt, Tf, sst, dt, hin_max, registry) -> Therm2Out:
     """ITD remap + rebin, lateral melt, frazil, rebin + cleanup; the whole
-    chain runs on one packed (ncat, NT, ny, nx) tracer stack."""
+    chain runs on one packed (ncat, NT, ny, nx) tracer stack. On a tile
+    grid `rebin`'s moves are agreed over the grid's mesh."""
     nilyr = cfg.domain.nilyr
+    mesh = None if grid is None else tile_mesh(grid.bc)
 
     off = name_offsets(registry)
     trp = pack_tracers(trcrn, registry)
@@ -182,7 +186,7 @@ def step_therm2(cfg, grid, aicen, vicen, vsnon, trcrn, *, hicen_old,
             aicen, vicen, vsnon, trp, hin_max, hicen_old, hicen_new,
             registry)
     aicen, vicen, vsnon, trp = rebin(aicen, vicen, vsnon, trp, hin_max,
-                                     registry)
+                                     registry, mesh)
 
     # salt fluxes at ice_ref_salinity under saltflux_option='constant'
     sal_ref = (cfg.thermo.ice_ref_salinity
@@ -191,7 +195,7 @@ def step_therm2(cfg, grid, aicen, vicen, vsnon, trcrn, *, hicen_old,
     if "apnd" in off and "hpnd" in off:
         pond_h = torch.clamp(trp[:, off["apnd"][0]], 0.0, 1.0) \
             * torch.clamp(trp[:, off["hpnd"][0]], min=0.0)
-        pond_vol0 = torch.sum(aicen * pond_h, dim=0)
+        pond_vol0 = lsum(aicen * pond_h, dim=0)
     else:
         pond_h = pond_vol0 = None
 
@@ -199,7 +203,7 @@ def step_therm2(cfg, grid, aicen, vicen, vsnon, trcrn, *, hicen_old,
         aicen, vicen, vsnon, trp, frzmlt=frzmlt, Tbot=Tf, sst=sst, Tf=Tf,
         dt=dt, registry=registry, sal_ref=sal_ref)
     if pond_vol0 is not None:
-        pond_vol1 = torch.sum(aicen * pond_h, dim=0)
+        pond_vol1 = lsum(aicen * pond_h, dim=0)
         dpnd_melt = torch.clamp(pond_vol0 - pond_vol1, min=0.0)
     else:
         dpnd_melt = torch.zeros_like(meltl)
@@ -209,7 +213,7 @@ def step_therm2(cfg, grid, aicen, vicen, vsnon, trcrn, *, hicen_old,
         hin_max=hin_max, nilyr=nilyr, registry=registry, sal_ref=sal_ref)
 
     aicen, vicen, vsnon, trp = rebin(aicen, vicen, vsnon, trp, hin_max,
-                                     registry)
+                                     registry, mesh)
     aicen, vicen, vsnon, trp, fclean = cleanup_itd(
         aicen, vicen, vsnon, trp, registry, dt=dt,
         sal_ref=(sal_ref if sal_ref is not None

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
+from ..core.reductions import agreed
 from ..ops import clip
 
 TSF_ERRMAX = 5.0e-4   # Picard exit: largest temperature change anywhere (K)
@@ -122,7 +123,7 @@ class TempSolveOut(NamedTuple):
 def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
                         hilyr, hslyr, Tbot, fswsfc, Iswabs,
                         shcoef, lhcoef, potT, Qa, rhoa, flw,
-                        conduct="bubbly", nit=20, ktherm=1):
+                        conduct="bubbly", nit=20, ktherm=1, mesh=None):
     """Implicit BL99 conduction solve, dense over any leading batch dims.
 
     qsno/qice: lists of layer enthalpies (J/m^3); hilyr/hslyr layer
@@ -265,7 +266,7 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
             + [(a - b).abs().max() for a, b in zip(Tsn_n, Tsn)]
             + [(a - b).abs().max() for a, b in zip(Tin_n, Tin)]).max()
         Tsf, Tsn, Tin = Tsf_n, Tsn_n, Tin_n
-        if not bool(err > TSF_ERRMAX):
+        if not bool(agreed(err, mesh) > TSF_ERRMAX):
             break
 
     fsurf, dfsurf, fsens, flat, flwout = surface_fluxes(

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
 
 SK_L = 0.03            # skeletal layer thickness (m)
 CHLABS = 0.03          # light attenuation per algal biomass
@@ -81,7 +82,7 @@ def step_bgc_skl(cfg_bgc, dt, *, aicen, vicen, bgc_N, bgc_Nit, fswthru,
     N_new = torch.where(mask, torch.clamp(N_new, min=0.0), 0.0)
     Nit_new = torch.where(mask, torch.clamp(Nit_new, min=0.0),
                           torch.broadcast_to(nit_ocn, bgc_Nit.shape))
-    flux = torch.sum(torch.where(mask, aicen * (released - dNit * SK_L),
+    flux = lsum(torch.where(mask, aicen * (released - dNit * SK_L),
                                  0.0), dim=0) / dt
     return BgcOut(bgc_N=N_new, bgc_Nit=Nit_new, flux_NO3_ocn=flux,
                   grow_net=torch.where(mask, mu, 0.0))
@@ -126,7 +127,7 @@ def step_bgc_skl_net(cfg_bgc, dt, *, aicen, trc, fswthru, Tbot, meltb,
     fluxes = {}
 
     def to_ocean(x):
-        return torch.sum(torch.where(mask, aicen * x, 0.0), dim=0) / dt
+        return lsum(torch.where(mask, aicen * x, 0.0), dim=0) / dt
 
     # total algal biomass for self-shading
     Ntot = sum(trc[a] for a in ALGAL_CLASSES if a in trc)
@@ -187,7 +188,7 @@ def step_bgc_skl_net(cfg_bgc, dt, *, aicen, trc, fswthru, Tbot, meltb,
         dC = pv * (ocn - C) * dt / SK_L
         C = C + dC
         out[name] = torch.where(mask, torch.clamp(C, min=0.0), ocn)
-        fluxes[name] = torch.sum(torch.where(mask, -aicen * dC * SK_L, 0.0),
+        fluxes[name] = lsum(torch.where(mask, -aicen * dC * SK_L, 0.0),
                                  dim=0) / dt
 
     remin = cfg_bgc.fr_resp * tot_mort          # N remineralised in place

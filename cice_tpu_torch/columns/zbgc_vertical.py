@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
-from ..ops import rdiv
+from ..ops import lsum, rdiv
 from .mushy import liquid_fraction, temperature_mush
 
 # percolation threshold for brine connectivity (Golden et al. 2007)
@@ -524,17 +524,17 @@ def step_zbgc(zcfg, dt, *, aicen, vicen, vsnon, fbri, qice, sice,
     if zcfg.solve_zbgc:
         trc, grow_net_l, net_diags = algal_network(zcfg, dt, trc, PAR,
                                                    T_layer)
-        grow_net = torch.sum(
+        grow_net = lsum(lsum(
             torch.where(mask[:, None], aicen[:, None] * grow_net_l, 0.0),
-            dim=(0, 1)) / nb
+            1)) / nb
 
         # column-integrated uptake rates (mmol N/m^2/s): a layer rate is
         # per brine volume; integrate x dz over the column, area-weight
         def colint(rate):
             if not isinstance(rate, torch.Tensor):
                 return zero2
-            return torch.sum(torch.where(mask[:, None], rate * dzb, 0.0)
-                             * aicen[:, None], dim=(0, 1))
+            return lsum(lsum(torch.where(mask[:, None], rate * dzb, 0.0)
+                             * aicen[:, None], 1))
         upNO = colint(net_diags["upNO"])
         upNH = colint(net_diags["upNH"])
         # net primary production (mg C/m^2/d): realised N uptake x C:N x
@@ -633,12 +633,12 @@ def step_zbgc(zcfg, dt, *, aicen, vicen, vsnon, fbri, qice, sice,
     out_adv = torch.clamp(wbot, min=0.0) * Cb
     in_adv = (torch.clamp(-wbot, min=0.0) + v_bot) * Cbc
     ex_dif = v_bot * Cb
-    fl = torch.sum(torch.where(mask, aicen * (out_adv + ex_dif - in_adv),
+    fl = lsum(torch.where(mask, aicen * (out_adv + ex_dif - in_adv),
                                0.0), dim=1)
 
     if isinstance(chl_tot, torch.Tensor):
-        chl_int = torch.sum(torch.where(mask[:, None], chl_tot * dzb, 0.0)
-                            * aicen[:, None], dim=(0, 1))
+        chl_int = lsum(lsum(torch.where(mask[:, None], chl_tot * dzb, 0.0)
+                            * aicen[:, None], 1))
     else:
         chl_int = zero2
 
@@ -648,11 +648,11 @@ def step_zbgc(zcfg, dt, *, aicen, vicen, vsnon, fbri, qice, sice,
     wcat = torch.where(mask[:, None], aicen[:, None], 0.0)
     perm = 3.0e-8 * (phi * (phi * phi))
     diags = {
-        "bTizn": torch.sum(wcat * T_layer, dim=0),
-        "bphizn": torch.sum(wcat * phi, dim=0),
-        "zfswin": torch.sum(wcat * PAR, dim=0),
-        "iDin": torch.sum(wcat * D, dim=0),
-        "ikin": torch.sum(wcat * perm, dim=0),
+        "bTizn": lsum(wcat * T_layer, dim=0),
+        "bphizn": lsum(wcat * phi, dim=0),
+        "zfswin": lsum(wcat * PAR, dim=0),
+        "iDin": lsum(wcat * D, dim=0),
+        "ikin": lsum(wcat * perm, dim=0),
         "upNO": upNO, "upNH": upNH, "PP_net": PP_net,
     }
     return ZbgcOut(trc={n: C_new[i] for i, n in enumerate(names)},

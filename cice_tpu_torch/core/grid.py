@@ -33,7 +33,9 @@ GRID_FIELDS = ("ULAT", "ULON", "TLAT", "TLON", "HTN", "HTE",
 
 @dataclass(frozen=True)
 class Grid:
-    """Global grid: coordinates, metric terms, masks; all (ny, nx)."""
+    """Global grid: coordinates, metric terms, masks; all (ny, nx). A tile
+    grid (`tile_grid`) holds one rank's tiles of them; its `bc` (a
+    `core.halo.TileBC`) knows the global shape and the tile's offsets."""
 
     ULAT: torch.Tensor
     ULON: torch.Tensor
@@ -83,6 +85,11 @@ class Grid:
 
     @property
     def shape(self):
+        """The (ny, nx) of this grid's arrays: a tile's on a tile grid."""
+        return tuple(self.hm.shape[-2:])
+
+    @property
+    def global_shape(self):
         return (self.ny_global, self.nx_global)
 
     @property
@@ -226,6 +233,19 @@ def derive_arrays(ULAT, ULON, HTN, HTE, hm, bc: BC, bathymetry=None,
                 dyhx=dyhx, cyp=cyp, cxp=cxp, cym=cym, cxm=cxm, ANGLE=ANGLE,
                 ANGLET=ANGLET, hm=hm, uvm=uvm, npm=npm, epm=epm,
                 bathymetry=np.asarray(bathymetry, np.float64))
+
+
+def tile_grid(grid: Grid, mesh) -> Grid:
+    """This rank's tile grid of the whole `grid` on `mesh`
+    (parallel.mesh.Mesh): every field a contiguous copy of the rank's tile,
+    `bc` a TileBC of the global boundary. Built from the whole grid, so no
+    setup shift needs a message."""
+    ny, nx = grid.global_shape
+    bc = mesh.tile_bc(grid.bc, (ny, nx))
+    return Grid(**{nm: bc.tile(getattr(grid, nm)).clone(
+                    memory_format=torch.contiguous_format)
+                   for nm in GRID_FIELDS},
+                bc=bc, nx_global=nx, ny_global=ny)
 
 
 def grid_from_arrays(arrays: dict, bc: BC, dtype: torch.dtype,

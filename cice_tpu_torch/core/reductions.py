@@ -25,6 +25,12 @@ rank's tile: each rank reduces its tile, then the ranks combine. For
 the integers, so the result is bit-identical on any mesh; 'lsum16' and
 'ddpdd' combine the ranks' (sum, error) pairs in the same TwoSum tree;
 the others add the ranks' partial sums.
+
+A step on a sharded state makes host decisions on data (a Picard exit, a
+ridging pass, a category move): every rank must take the same branch, or
+the shifts of a branch one rank skips leave its peers waiting.
+`agreed(x, mesh)` is `x` reduced over the mesh's ranks, read the same on
+each.
 """
 
 from __future__ import annotations
@@ -131,3 +137,14 @@ def global_minval(field: torch.Tensor, mask=None, *, mesh=None):
         x = torch.where(mask, x, torch.full_like(x, torch.inf))
     m = x.min()
     return m if mesh is None else mesh.all_reduce(m, "min")
+
+
+def agreed(x: torch.Tensor, mesh=None, op: str = "max") -> torch.Tensor:
+    """`x`, a tensor a host decision reads on a rank's tiles, reduced
+    ('max', 'min' or 'sum'; a bool by any) over the ranks of `mesh`, so
+    that every rank takes the same branch; `x` itself without a mesh."""
+    if mesh is None or mesh.size == 1:
+        return x
+    if x.dtype == torch.bool:
+        return mesh.all_reduce(x.to(torch.uint8), "max").bool()
+    return mesh.all_reduce(x, op)

@@ -31,7 +31,7 @@ from .. import constants as cst
 from ..constants import (FIELD_LOC_CENTER, FIELD_LOC_NECORNER,
                          FIELD_TYPE_SCALAR, FIELD_TYPE_VECTOR)
 from ..core.grid import Grid
-from ..core.halo import shift
+from ..core.halo import shift, tile_mesh
 from ..model.state import DEP_VICE, DEP_VSNO, State
 
 # monomial order for region moments: x^p y^q
@@ -743,11 +743,18 @@ def update_fields(grid: Grid, am, trm, mflxe, mflxn, mtflxe, mtflxn, table):
 # ---------------------------------------------------------------------------
 
 def global_sums(grid: Grid, am, trm, table):
-    """Sum of area and of area*tracer-chain-product over the domain."""
+    """Sum of area and of area*tracer-chain-product over the domain. On a
+    tile grid each rank sums its tile and the ranks add their partial sums
+    (one message: `core.reductions.global_sum`'s 'off' combine, for every
+    category and tracer at once)."""
     w = grid.tarea * grid.hm
     asum = (am * w[None]).sum(dim=(-2, -1))
     pr = _chain_product(trm, am[1:], _TableArrays(table))
     prods = (pr * w[None, None]).sum(dim=(-2, -1))
+    mesh = tile_mesh(grid.bc)
+    if mesh is not None:
+        both = mesh.all_reduce(torch.cat([asum, prods.reshape(-1)]))
+        asum, prods = both[:asum.numel()], both[asum.numel():].view_as(prods)
     return asum, prods                          # (ncat+1,), (ncat, NT)
 
 
@@ -893,6 +900,14 @@ def horizontal_remap_exact(grid: Grid, state: State, registry, Tf, dt,
         diag["mono_violation"] = torch.zeros((), dtype=torch.bool,
                                              device=am.device)
 
+    mesh = tile_mesh(grid.bc)
+    if mesh is not None:
+        # the whole grid's flags and depth, the same on every rank
+        keys = ("oob", "neg_mass", "mono_violation", "neg_mass_depth")
+        got = mesh.all_reduce(torch.stack([diag[k].to(am.dtype)
+                                           for k in keys]), "max")
+        diag.update({k: got[i] > 0 for i, k in enumerate(keys[:3])},
+                    neg_mass_depth=got[3])
     new_state = tracers_to_state(am_new, trm_new, state, registry,
                                  grid.tmask, Tf, table)
     return new_state, diag

@@ -14,6 +14,11 @@ queued to the background writer (`writer=`). The averaging
 state is not part of the model's restarts (as in the JAX driver);
 `get_restart_payload` / `set_restart_payload` carry it for callers that
 want it.
+
+On a tile grid (the state sharded across the ranks of a mesh) each rank
+accumulates its tiles; at a boundary the ranks gather the stream's rows
+and the mesh's first rank writes the file from the whole grid
+(`whole_grid`), byte for byte the file one process writes.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
+from ..core.halo import tile_mesh
 from .async_writer import SnapshotBytesIO, write_bytes
 from .history_fields import HistoryField, build_fields, nrows
 
@@ -53,10 +59,13 @@ class History:
     """Multi-stream accumulating history writer."""
 
     def __init__(self, cfg, grid, directory: Optional[str] = None,
-                 writer=None):
+                 writer=None, whole_grid=None):
         self.cfg = cfg
         self.writer = writer          # io.async_writer.AsyncWriter | None
         self.grid = grid
+        # the grid of the files (the whole grid of a tile grid)
+        self.out_grid = grid if whole_grid is None else whole_grid
+        self.mesh = tile_mesh(grid.bc)
         self.fields = build_fields(cfg)
         self.dir = directory or cfg.setup.history_dir
         s = cfg.setup
@@ -158,18 +167,26 @@ class History:
         """The stream's rows as written: the sum over the steps
         accumulated divided by their number (snapshot rows: the last
         value), on the host."""
-        data = _np(st.acc) / max(st.nacc, 1)
+        whole = ((lambda t: t) if self.mesh is None else
+                 (lambda t: self.mesh.all_gather_tiles(
+                     t, *self.out_grid.shape)))
+        data = _np(whole(st.acc)) / max(st.nacc, 1)
         if st.snap_idx.size and st.last is not None:
             # snapshot fields (f_aisnap/f_hisnap) write the last value even
             # on averaging streams
-            data[st.snap_idx] = _np(st.last)[st.snap_idx]
+            data[st.snap_idx] = _np(whole(st.last))[st.snap_idx]
         return data
 
     def write_stream(self, st: Stream, calendar, fmt: str = "cdf1") -> str:
-        os.makedirs(self.dir, exist_ok=True)
         data = self.stream_data(st)
-        mask = _np(self.grid.hm) > 0.5
         base = f"{self.cfg.setup.history_file}.{st.freq}.{calendar.timestamp()}"
+        if self.mesh is not None and self.mesh.rank != \
+                self.mesh.group_ranks[0]:
+            # the mesh's first rank writes the gathered stream
+            return os.path.join(self.dir, base + (".npz" if fmt == "npz"
+                                                  else ".nc"))
+        os.makedirs(self.dir, exist_ok=True)
+        mask = _np(self.out_grid.hm) > 0.5
         buf = SnapshotBytesIO()
         if fmt == "npz":
             # one array per field on its own axes, unmasked (the JAX
@@ -200,7 +217,7 @@ class History:
             k = nrows(fld)
             sizes = tuple(sz for _d, sz in fld.dims)
             out[fld.name] = data[cur:cur + k].reshape(
-                sizes + tuple(self.grid.shape))
+                sizes + tuple(self.out_grid.shape))
             cur += k
         return out
 
@@ -249,7 +266,7 @@ class History:
         with CF attrs and dimension scales (the shape netCDF-4 writes)."""
         import h5py
 
-        ny, nx = self.grid.shape
+        ny, nx = self.out_grid.shape
         cy, cx = self.cfg.setup.history_chunksize
         lvl = int(self.cfg.setup.history_deflate)
         comp = dict(compression="gzip", compression_opts=lvl) if lvl else {}
@@ -272,8 +289,8 @@ class History:
                 c.attrs["long_name"] = lname
                 c.make_scale(d)
                 scales[d] = c
-            for nm, arr in (("TLAT", self.grid.TLAT),
-                            ("TLON", self.grid.TLON)):
+            for nm, arr in (("TLAT", self.out_grid.TLAT),
+                            ("TLON", self.out_grid.TLON)):
                 v = f.create_dataset(
                     nm, data=(_np(arr) * cst.rad_to_deg).astype(np.float32),
                     **comp)
@@ -306,7 +323,7 @@ class History:
         time_bounds/cell_methods CF metadata and the 3Dc/4Di axes)."""
         from scipy.io import netcdf_file
 
-        ny, nx = self.grid.shape
+        ny, nx = self.out_grid.shape
         tval, tunits, cal, tb = self._time_meta(calendar, st)
         with netcdf_file(fileobj, "w") as f:
             f.Conventions = b"CF-1.0"
@@ -329,8 +346,8 @@ class History:
                 c[:] = vals.astype(np.float64)
                 c.units = vunits.encode()
                 c.long_name = lname.encode()
-            for nm, arr in (("TLAT", self.grid.TLAT),
-                            ("TLON", self.grid.TLON)):
+            for nm, arr in (("TLAT", self.out_grid.TLAT),
+                            ("TLON", self.out_grid.TLON)):
                 v = f.createVariable(nm, "f4", ("nj", "ni"))
                 v[:] = _np(arr) * cst.rad_to_deg
                 v.units = b"degrees"

@@ -21,8 +21,9 @@ numbered as io/restart.py numbers them) and `meta.json` with the calendar,
 named by the pointer file.
 
 The reader takes every manifest of a field and reassembles the whole
-array, so a restart written on one mesh shape reads on any other (the
-state stays whole on every rank).
+array, so a restart written on one mesh shape reads on any other. A state
+sharded across the ranks writes each rank's tiles as they are
+(`tiles_of=`, the global shape).
 
 Order on the disk: a manifest is the follow-on of its shard (written after
 the shard is in place, inline or by the background writer's worker), and
@@ -67,24 +68,32 @@ def _rank(mesh) -> Tuple[int, int, bool]:
 
 
 def write_field_sharded(dirpath: str, name: str, arr: torch.Tensor,
-                        writer=None, mesh=None) -> Optional[dict]:
+                        writer=None, mesh=None,
+                        tiles_of=None) -> Optional[dict]:
     """Write this rank's shard of `arr` and its manifest; returns the
     manifest (None on a rank that holds no shard of it). With `writer`
     (io.async_writer.AsyncWriter) the shard is queued and the manifest is
-    its follow-on."""
+    its follow-on. tiles_of: the global (ny, nx) when `arr` is already
+    this rank's tile (its last two dimensions)."""
     os.makedirs(dirpath, exist_ok=True)
     rank, nprocs, lead = _rank(mesh)
+    shape = tuple(arr.shape)
+    tiled = (tiles_of is not None and arr.ndim >= 2 and
+             shape[-2:] == tuple(s.stop - s.start for s in
+                                 mesh.tile_slices(*tiles_of)))
+    if tiled:
+        shape = shape[:-2] + tuple(tiles_of)
     if mesh is not None and arr.ndim >= 2:
-        sy, sx = mesh.tile_slices(*arr.shape[-2:])
+        sy, sx = mesh.tile_slices(*shape[-2:])
         index = (slice(None),) * (arr.ndim - 2) + (sy, sx)
     elif lead:
         index = ()
     else:
         return None
-    shard = arr[index] if index else arr
+    shard = arr if tiled or not index else arr[index]
     data = shard.detach().cpu().numpy()
     fname = f"{name}.p{rank}s000.npy"
-    manifest = {"shape": list(arr.shape), "dtype": str(data.dtype),
+    manifest = {"shape": list(shape), "dtype": str(data.dtype),
                 "shards": [{"file": fname,
                             "index": _index_to_json(index, arr.ndim),
                             "device": str(arr.device)}],
@@ -132,16 +141,18 @@ def read_field_sharded(dirpath: str, name: str,
 def write_restart_sharded(dirpath: str, state: State, calendar: Calendar,
                           pointer_file: Optional[str] = None, *,
                           prefix: str = "iced", writer=None, mesh=None,
-                          extra: Optional[dict] = None) -> str:
+                          extra: Optional[dict] = None,
+                          tiles_of=None) -> str:
     """PIO-style restart dump: every leaf written shard-wise under
     `<dirpath>/<prefix>.<timestamp>.pio/`, then `meta.json` and the pointer
-    (the io/restart.py contract). Returns the directory."""
+    (the io/restart.py contract). Returns the directory. tiles_of: the
+    global (ny, nx) when `state` is this rank's tiles."""
     ddir = os.path.join(dirpath, f"{prefix}.{calendar.timestamp()}.pio")
     os.makedirs(ddir, exist_ok=True)
     leaves = state_leaves(state)
     for i, leaf in enumerate(leaves):
         write_field_sharded(ddir, f"leaf_{i}", leaf, writer=writer,
-                            mesh=mesh)
+                            mesh=mesh, tiles_of=tiles_of)
     meta = dict(year=calendar.year, month=calendar.month, day=calendar.day,
                 sec=calendar.sec, istep=calendar.istep,
                 calendar_type=calendar.calendar_type,

@@ -119,7 +119,7 @@ def _is_hdf5(path: str) -> bool:
 def write_restart(dirpath: str, state: State, calendar: Calendar,
                   pointer_file: str | None = None, *, prefix: str = "iced",
                   extra: dict | None = None, fmt: str = "npz",
-                  writer=None, mesh=None) -> str:
+                  writer=None, mesh=None, tiles_of=None) -> str:
     """Dump state to `<dirpath>/<prefix>.<timestamp>.{npz,nc}`; update the
     pointer file. Returns the restart's path.
 
@@ -130,14 +130,26 @@ def write_restart(dirpath: str, state: State, calendar: Calendar,
     (io.async_writer.AsyncWriter) the payload is serialised here and
     queued; call `writer.flush()` before reading it back. The pointer is
     written only after the payload is on disk, inline or by the writer's
-    worker."""
+    worker.
+
+    tiles_of: the global (ny, nx) when `state` is this rank's tiles of a
+    state sharded across `mesh`: 'pio' writes the tiles as they are, the
+    other formats gather them and the mesh's first rank writes the file
+    (the same bytes as one process's); every rank returns the path."""
     if fmt == "pio":
         from .pio import write_restart_sharded
         return write_restart_sharded(dirpath, state, calendar, pointer_file,
                                      prefix=prefix, writer=writer, mesh=mesh,
-                                     extra=extra)
+                                     extra=extra, tiles_of=tiles_of)
     if fmt not in FORMATS:
         raise ValueError(f"unknown restart format {fmt!r}; one of {FORMATS}")
+    lead = True
+    if tiles_of is not None:
+        state = mesh.gather_state(state, tiles_of)
+        lead = mesh.rank == mesh.group_ranks[0]
+    stem = os.path.join(dirpath, f"{prefix}.{calendar.timestamp()}")
+    if not lead:
+        return stem + (".npz" if fmt == "npz" else ".nc")
     os.makedirs(dirpath, exist_ok=True)
     arrays = {f"leaf_{i}": x.detach().cpu().numpy()
               for i, x in enumerate(state_leaves(state))}
@@ -148,7 +160,6 @@ def write_restart(dirpath: str, state: State, calendar: Calendar,
     if extra:
         meta.update(extra)
 
-    stem = os.path.join(dirpath, f"{prefix}.{calendar.timestamp()}")
     if fmt == "cdf1":
         fname = stem + ".nc"
         buf = SnapshotBytesIO()

@@ -22,6 +22,13 @@ kernel or raises. Neither kernel knows a tripole fold or a y-cyclic wrap
 (ROADMAP A9), and both are float32: on CUDA tensors such a grid or dtype
 raises, and a run that wants the plain transport there names it
 (remap_kernel='xla').
+
+On a tile of a sharded grid (`core.halo.TileBC`) each kernel runs as the
+one-program kernel would on the whole grid: its inputs are padded by the
+rings the kernel reads around a cell (K2_RADIUS, K3_RADIUS) with the
+neighbours' values through one halo exchange (zero past a non-cyclic
+global edge, the wrap across a cyclic one), the kernel runs on the padded
+tile with no wrap of its own, and the outputs are cut back to the tile.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core.grid import Grid
+from ..core.halo import TileBC
 from ..dynamics.remap_exact import (_TableArrays, construct_fields,
                                     fluxes_from_moments, update_pre_floor)
 from ._build import check, load
@@ -50,6 +58,18 @@ TILES = ((32, 8), (32, 4), (32, 2), (32, 1), (16, 1), (8, 1))
 MAX_SMEM = 232448          # bytes a block may use on sm_90
 #: reconstructions one chunk of the schedule may hold
 CHUNK = 16
+#: rings around a tile that K2 reads for the tile's cells: a cell's update
+#: takes the fluxes of its four edges, whose donors lie one cell away, and
+#: each donor's limited reconstruction reads its 3x3 neighbourhood
+K2_RADIUS = 2
+#: rings K3 reads: a cell's east and north fluxes take the reconstructions
+#: of donors one cell away (the update, plain, shifts the fluxes)
+K3_RADIUS = 1
+
+
+def _crop(R: int, *outs):
+    return [o[..., R:o.shape[-2] - R, R:o.shape[-1] - R].contiguous()
+            for o in outs]
 
 
 def block_threads(tx: int, ty: int) -> int:
@@ -340,6 +360,13 @@ def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
     if grid.shape != (ny, nx):
         raise ValueError("fused transport kernel: grid shape mismatch")
     afn, afe, tarear, hm = _grid_planes(grid)
+    x_cyclic, R = int(grid.bc.x_cyclic), 0
+    if isinstance(grid.bc, TileBC):
+        from ..parallel.evp_wide import padded_tiles
+        R, x_cyclic = K2_RADIUS, 0
+        trm, am, mom_n, mom_e, afn, afe, tarear, hm = padded_tiles(
+            grid.bc, R, trm, am, mom_n, mom_e, afn, afe, tarear, hm)
+        ny, nx = ny + 2 * R, nx + 2 * R
     layout, sched = _schedule_tensors(table, trm.device, budget)
     tx, ty = tile or pick_tile(layout)
     if (tx, ty) not in TILES or smem_bytes(tx, ty, layout) > MAX_SMEM:
@@ -352,10 +379,11 @@ def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
                                    hm, sched)]
     err = _lib().transport_fused(
         *ptrs, (ctypes.c_int * 8)(*layout), trm_new.data_ptr(),
-        am_pre.data_ptr(), ncat, NT, ny, nx, int(grid.bc.x_cyclic), tx, ty,
-        stream)
+        am_pre.data_ptr(), ncat, NT, ny, nx, x_cyclic, tx, ty, stream)
     check(err, "transport_fused")
     launches += 1
+    if R:
+        am_pre, trm_new = _crop(R, am_pre, trm_new)
     return am_pre, trm_new
 
 
@@ -487,6 +515,13 @@ def tracer_fluxes_cuda(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
         raise ValueError("flux-only transport kernel: the grid is too large "
                          "for its 32-bit cell indices")
     afn, afe, _, _ = _grid_planes(grid)
+    x_cyclic, R = int(grid.bc.x_cyclic), 0
+    if isinstance(grid.bc, TileBC):
+        from ..parallel.evp_wide import padded_tiles
+        R, x_cyclic = K3_RADIUS, 0
+        tstack, mc, mx, my, mom_n, mom_e, afn, afe = padded_tiles(
+            grid.bc, R, tstack, mc, mx, my, mom_n, mom_e, afn, afe)
+        ny, nx = ny + 2 * R, nx + 2 * R
     order = _flux_order_tensor(table, tc.device)
     mflxe = torch.empty_like(mc)
     mflxn = torch.empty_like(mc)
@@ -497,10 +532,12 @@ def tracer_fluxes_cuda(grid: Grid, mom_n, mom_e, mc, mx, my, tc, tx, ty,
     ptrs = [t.data_ptr() for t in (tstack, mc, mx, my, mom_n, mom_e, afn,
                                    afe, order, mflxe, mflxn, mtflxe,
                                    mtflxn)]
-    err = _flux_lib().tracer_fluxes(*ptrs, ncat, NT, ny, nx,
-                                    int(grid.bc.x_cyclic), chunk, stream)
+    err = _flux_lib().tracer_fluxes(*ptrs, ncat, NT, ny, nx, x_cyclic,
+                                    chunk, stream)
     check(err, "tracer_fluxes")
     flux_launches += 1
+    if R:
+        return tuple(_crop(R, mflxe, mflxn, mtflxe, mtflxn))
     return mflxe, mflxn, mtflxe, mtflxn
 
 

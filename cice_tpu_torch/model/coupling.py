@@ -33,6 +33,7 @@ from typing import Dict
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
 from ..columns.ocean import freezing_temperature
 from .driver import Model
 from .forcing import default_coszen
@@ -103,7 +104,7 @@ class CoupledIce:
             dst = vec("Faxa_dstwet", 4) + vec("Faxa_dstdry", 4)
             n_aero = m.cfg.domain.n_aero
             species = [bcph[0] + (bcph[1] if bcph.shape[0] > 1 else z),
-                       bcph[2] if bcph.shape[0] > 2 else z, dst.sum(0)]
+                       bcph[2] if bcph.shape[0] > 2 else z, lsum(dst)]
             upd["faero_atm"] = (torch.stack((species + [z] * n_aero)[:n_aero])
                                 if n_aero else z.new_zeros((0,) + shp))
         if "Faxa_snow_wiso" in f:
@@ -168,7 +169,7 @@ class CoupledIce:
             "Si_thick": per_ice(st.vice),
             "Si_snowh": per_ice(st.vsno),
             "Si_u10": st.uvel, "Si_v10": st.vvel,
-            "Si_t": (st.trcrn["Tsfcn"] * st.aicen).sum(0) / ai + cst.Tffresh,
+            "Si_t": lsum(st.trcrn["Tsfcn"] * st.aicen) / ai + cst.Tffresh,
             "Si_avsdr": s(fl.alvdr) if fl else aice * 0,
             "Si_avsdf": s(fl.alvdf) if fl else aice * 0,
             "Si_anidr": s(fl.alidr) if fl else aice * 0,
@@ -185,9 +186,9 @@ class CoupledIce:
             nfsd = st.trcrn["fsd"].shape[1]
             mid = torch.as_tensor(fsd_bounds(nfsd)[2], dtype=aice.dtype,
                                   device=aice.device)[None, :, None, None]
-            rmean = torch.sum(st.trcrn["fsd"] * mid, dim=1)
+            rmean = lsum(st.trcrn["fsd"] * mid, dim=1)
             out["Si_floediam"] = 2.0 * torch.clamp(
-                (rmean * st.aicen).sum(0) / ai, min=8.0)
+                lsum(rmean * st.aicen) / ai, min=8.0)
         else:
             # a constant representative diameter without the FSD (the
             # reference's floediam default)
@@ -236,7 +237,7 @@ class CoupledIce:
                 # isosno is a burden per category area (aero_iso.py)
                 snow_mass = cst.rhos * torch.clamp(st.vsno, min=cst.puny)
                 R = torch.stack([
-                    torch.sum(trc["isosno"][:, k] * st.aicen, dim=0)
+                    lsum(trc["isosno"][:, k] * st.aicen, dim=0)
                     / snow_mass for k in range(fiso.shape[0])])
                 out["Faii_evap_wiso"] = fl.evap[None] * R
             if self.Qa_iso is not None:

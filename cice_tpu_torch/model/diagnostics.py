@@ -5,6 +5,11 @@ tables, and ice_diagnostics_bgc.F90 `bgc_diags`, `hbrine_diags`). All
 results are 0-d tensors on the state's device, except the point probes
 (`print_points_state`, `debug_ice`), which gather their columns on the
 device and come to the host in one read per call.
+
+On a tile grid (`parallel.mesh.Mesh.tile_grid`) every total and extreme is
+over the whole grid: each rank reduces its tile and the ranks combine
+(`core.reductions.global_sum`, `global_maxval`), so every rank reads the
+same values; `check_state` takes the mesh as `mesh=`.
 """
 
 from __future__ import annotations
@@ -15,9 +20,21 @@ import numpy as np
 import torch
 
 from .. import constants as cst
+from ..ops import lmean, lsum
 from ..columns.ponds import pond_reservoir_mass
 from ..core.grid import Grid
+from ..core.halo import tile_mesh
+from ..core.reductions import global_maxval, global_sum
 from .state import State
+
+
+def _sum(grid, x: torch.Tensor) -> torch.Tensor:
+    """The sum of x over the grid (over the mesh's ranks on a tile)."""
+    return global_sum(x, mesh=tile_mesh(grid.bc))
+
+
+def _max(grid, x: torch.Tensor) -> torch.Tensor:
+    return global_maxval(x, mesh=tile_mesh(grid.bc))
 
 
 def runtime_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
@@ -30,7 +47,7 @@ def runtime_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
     sh = ~nh
 
     def hemi(field, mask):
-        return torch.sum(field * tarea * mask)
+        return _sum(grid, field * tarea * mask)
 
     ext = (aice > 0.15).to(aice.dtype)   # extent: 15% concentration
     uarea = grid.uarea * grid.uvm
@@ -40,14 +57,14 @@ def runtime_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
         "extent_nh": hemi(ext, nh), "extent_sh": hemi(ext, sh),
         "volume_nh": hemi(vice, nh), "volume_sh": hemi(vice, sh),
         "snow_nh": hemi(vsno, nh), "snow_sh": hemi(vsno, sh),
-        "ke": 0.5 * torch.sum(speed2 * uarea),
-        "umax": torch.sqrt(speed2).max(),
-        "aice_max": aice.max(),
-        "hmax": torch.where(aice > cst.puny,
-                            vice / torch.clamp(aice, min=cst.puny),
-                            0.0).max(),
-        "sst_mean": torch.sum(state.sst * tarea) /
-        torch.clamp(torch.sum(tarea), min=1.0),
+        "ke": 0.5 * _sum(grid, speed2 * uarea),
+        "umax": _max(grid, torch.sqrt(speed2)),
+        "aice_max": _max(grid, aice),
+        "hmax": _max(grid, torch.where(aice > cst.puny,
+                                       vice / torch.clamp(aice, min=cst.puny),
+                                       0.0)),
+        "sst_mean": _sum(grid, state.sst * tarea) /
+        torch.clamp(_sum(grid, tarea), min=1.0),
     }
 
 
@@ -59,14 +76,14 @@ def bgc_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
     multiplies it by aicen directly, which fails unless ncat == nblyr."""
     tarea = grid.tarea * grid.hm
     d: Dict[str, torch.Tensor] = {}
-    aice_w = torch.clamp(torch.sum(state.aice * tarea), min=cst.puny)
+    aice_w = torch.clamp(_sum(grid, state.aice * tarea), min=cst.puny)
     for name, trc in state.trcrn.items():
         if not name.startswith("bgc_"):
             continue
         if trc.dim() == 4:
-            trc = trc.mean(1)
-        cell = torch.sum(trc * state.aicen, dim=0)      # cell-mean content
-        d[f"{name}_tot"] = torch.sum(cell * tarea)
+            trc = lmean(trc, 1)
+        cell = lsum(trc * state.aicen, dim=0)      # cell-mean content
+        d[f"{name}_tot"] = _sum(grid, cell * tarea)
         d[f"{name}_mean"] = d[f"{name}_tot"] / aice_w
     return d
 
@@ -81,12 +98,12 @@ def hbrine_diags(grid: Grid, state: State) -> Dict[str, torch.Tensor]:
     hin = torch.where(state.aicen > cst.puny,
                       state.vicen / torch.clamp(state.aicen, min=cst.puny),
                       0.0)
-    hbri = torch.sum(fbri * hin * state.aicen, dim=0)
-    aice_w = torch.clamp(torch.sum(state.aice * tarea), min=cst.puny)
+    hbri = lsum(fbri * hin * state.aicen, dim=0)
+    aice_w = torch.clamp(_sum(grid, state.aice * tarea), min=cst.puny)
     return {
-        "fbri_mean": torch.sum(torch.sum(fbri * state.aicen, dim=0) * tarea)
+        "fbri_mean": _sum(grid, lsum(fbri * state.aicen, dim=0) * tarea)
         / aice_w,
-        "hbri_mean": torch.sum(hbri * tarea) / aice_w,
+        "hbri_mean": _sum(grid, hbri * tarea) / aice_w,
     }
 
 
@@ -95,19 +112,19 @@ def _energy_field(state: State, acc=None):
     to = (lambda t: t) if acc is None else (lambda t: t.to(acc))
     qice = to(state.trcrn["qice"])
     qsno = to(state.trcrn["qsno"])
-    return (torch.sum(qice.mean(dim=1) * to(state.vicen), dim=0)
-            + torch.sum(qsno.mean(dim=1) * to(state.vsnon), dim=0))
+    return (lsum(lmean(qice, 1) * to(state.vicen), dim=0)
+            + lsum(lmean(qsno, 1) * to(state.vsnon), dim=0))
 
 
 def total_energy(grid: Grid, state: State) -> torch.Tensor:
     """Total ice+snow enthalpy (J): conservation oracle."""
-    return torch.sum(_energy_field(state) * (grid.tarea * grid.hm))
+    return _sum(grid, _energy_field(state) * (grid.tarea * grid.hm))
 
 
 def total_water_mass(grid: Grid, state: State) -> torch.Tensor:
     """Total ice+snow water mass (kg): fresh-water conservation oracle."""
     w = grid.tarea * grid.hm
-    return torch.sum((cst.rhoi * state.vice + cst.rhos * state.vsno) * w)
+    return _sum(grid, (cst.rhoi * state.vice + cst.rhos * state.vsno) * w)
 
 
 def total_pond_mass(grid: Grid, state: State,
@@ -121,7 +138,7 @@ def total_pond_mass(grid: Grid, state: State,
     if pond_lvl is None:
         pond_lvl = "alvl" in tr
     pond = pond_reservoir_mass(tr, state.aicen, pond_lvl)
-    return torch.sum(pond * (grid.tarea * grid.hm))
+    return _sum(grid, pond * (grid.tarea * grid.hm))
 
 
 def hemispheric_budgets(grid: Grid, state_pre: State, state_post: State,
@@ -148,12 +165,12 @@ def hemispheric_budgets(grid: Grid, state_pre: State, state_post: State,
         pond_lvl = "alvl" in state_pre.trcrn
 
     def tot(f):
-        return torch.sum(f.to(acc) * w)
+        return _sum(grid, f.to(acc) * w)
 
     def hemi2(f):
         s = f.to(acc) * w
-        return (torch.sum(torch.where(nh, s, 0.0)),
-                torch.sum(torch.where(nh, 0.0, s)))
+        return (_sum(grid, torch.where(nh, s, 0.0)),
+                _sum(grid, torch.where(nh, 0.0, s)))
 
     def pond_field(state):
         if "apnd" not in state.trcrn or "hpnd" not in state.trcrn:
@@ -170,7 +187,7 @@ def hemispheric_budgets(grid: Grid, state_pre: State, state_post: State,
                 cst.rhos * state.vsno.to(acc) + pond_field(state))
 
     aice0 = state_pre.aice
-    dM = torch.sum((mass_field(state_post) - mass_field(state_pre)) * w)
+    dM = _sum(grid, (mass_field(state_post) - mass_field(state_pre)) * w)
     snow_in = tot(fc.fsnow * aice0)
     rain_in = tot(fc.frain * aice0)
     evap_in = tot(flux.evap)
@@ -181,15 +198,15 @@ def hemispheric_budgets(grid: Grid, state_pre: State, state_post: State,
         water_in = water_in + dt * frazil_mass
     water_res = dM - water_in
 
-    dE = torch.sum((_energy_field(state_post, acc)
-                    - _energy_field(state_pre, acc)) * w)
+    dE = _sum(grid, (_energy_field(state_post, acc)
+                     - _energy_field(state_pre, acc)) * w)
     sw_abs = tot(flux.fswabs - flux.fswthru)
     lw_net = tot(fc.flw * aice0 + flux.flwout)
     turb = tot(flux.fsens + flux.flat)
     ocn_heat = tot(flux.fhocn)
     # stored enthalpy is measured against melted water at 0 C, so freezing
     # dM kg of water stores ~ -Lfresh*dM without any boundary heat flux
-    dpond = torch.sum((pond_field(state_post) - pond_field(state_pre)) * w)
+    dpond = _sum(grid, (pond_field(state_post) - pond_field(state_pre)) * w)
     latent_store = -cst.Lfresh * (dM - dpond)
     heat_in = dt * (sw_abs + lw_net + turb - ocn_heat) + latent_store
     heat_res = dE - heat_in
@@ -208,15 +225,19 @@ def hemispheric_budgets(grid: Grid, state_pre: State, state_post: State,
     }
 
 
-def check_state(state: State,
-                umax_stab: float = 1.0) -> Dict[str, torch.Tensor]:
+def check_state(state: State, umax_stab: float = 1.0, *,
+                mesh=None) -> Dict[str, torch.Tensor]:
     """NaN/instability watchdog: cheap device-side flags that Model.step
-    polls to abort early."""
-    umax = torch.sqrt(state.uvel ** 2 + state.vvel ** 2).max()
+    polls to abort early. With `mesh`, `state` is this rank's tile and the
+    flags are the whole state's."""
+    umax = global_maxval(torch.sqrt(state.uvel ** 2 + state.vvel ** 2),
+                         mesh=mesh)
     bad = ~(torch.isfinite(state.aicen).all()
             & torch.isfinite(state.vicen).all()
             & torch.isfinite(state.uvel).all()
             & torch.isfinite(state.sst).all())
+    if mesh is not None:
+        bad = mesh.all_reduce(bad.to(torch.uint8), "max").bool()
     return {"umax": umax, "unstable": umax > umax_stab, "nonfinite": bad}
 
 

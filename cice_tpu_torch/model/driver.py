@@ -21,6 +21,15 @@ group) every rank holds the whole state and steps it; the EVP solve of
 (parallel/evp_wide.py), and a 'pio' restart is written tile by tile
 (io/pio.py). Without a mesh 'wide_halo' runs the one-program solve, as
 the JAX package does.
+
+With `shard=True` (or `Model.shard()`, beside the JAX package's
+`m.state = shard_state(mesh, m.state)`) each rank holds and steps only its
+tile of every (..., ny, nx) array: the model is built whole, then its
+grid, state, forcing and the other per-cell arrays are tiled. Each step
+makes the forcing of the tiles, accumulates history on them, and takes the
+diagnostics' totals over the mesh; history files and restarts other than
+'pio' are gathered and written by the mesh's first rank, the same bytes as
+one process's. `gather_state()` gives the whole state on every rank.
 """
 
 from __future__ import annotations
@@ -36,11 +45,13 @@ from ..columns.mushy import enthalpy_mush
 from ..columns.thermo_vertical import (bl99_salinity, enthalpy_ice,
                                        enthalpy_snow, melting_temps)
 from ..core.grid import Grid, make_grid
+from ..core.halo import TileBC, tile_mesh
 from ..utils.timers import Timers
 from .flux import zeros_forcing
 from .forcing import default_ocn, get_forcing
 from .state import State, zeros_state
-from .step import ModelStatic, check_ported, model_step, step_dyn_transport
+from .step import (ModelStatic, check_ported, check_sharded, model_step,
+                   step_dyn_transport)
 
 
 def _scalar(v, dtype, device) -> torch.Tensor:
@@ -158,10 +169,12 @@ def set_state_var(cfg, grid: Grid, state: State, Tf) -> State:
 
 class Model:
     """Standalone model instance on one device (cice_init + CICE_Run
-    equivalents); with `mesh`, one rank of a run across ranks."""
+    equivalents); with `mesh`, one rank of a run across ranks, and with
+    `shard=True` one rank holding its tiles of the state."""
 
     def __init__(self, cfg, grid: Optional[Grid] = None, device="cuda",
-                 enable_history: bool = False, mesh=None):
+                 enable_history: bool = False, mesh=None,
+                 shard: bool = False):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Model(device='cuda') needs a CUDA device; "
@@ -234,6 +247,53 @@ class Model:
         self.dyn_diags: dict = {}
         self.tchecks: dict = {}
         self.diag_log: list = []
+        #: the whole grid of a sharded model (self.grid is its tile)
+        self.whole_grid = self.grid
+        if shard:
+            self.shard()
+
+    # -- the state sharded across the ranks ----------------------------------
+    @property
+    def sharded(self) -> bool:
+        return isinstance(self.grid.bc, TileBC)
+
+    def shard(self) -> "Model":
+        """Keep only this rank's tile of every (..., ny, nx) array of the
+        model (grid, state, forcing, the last fluxes, the prescribed ice,
+        the restoring target and zone, the history accumulators) and step
+        those from now on. Raises NotImplementedError for the dynamics
+        `model.step.check_sharded` names."""
+        if self.mesh is None:
+            raise ValueError("Model.shard needs a mesh (parallel.mesh.Mesh)")
+        if self.sharded:
+            return self
+        check_sharded(self.cfg)
+        mesh, shape = self.mesh, self.grid.global_shape
+        cut = lambda tree: mesh.shard_state(tree, shape)
+        self.grid = mesh.tile_grid(self.whole_grid)
+        self.state = cut(self.state)
+        self.forcing = cut(self.forcing)
+        self.flux = cut(self.flux)
+        self._ice_cov = cut(self._ice_cov)
+        self._restore_target = cut(self._restore_target)
+        self._restore_zone = cut(self._restore_zone)
+        if self.history is not None:
+            hist = self.history
+            from ..io.history import History
+            self.history = History(self.cfg, self.grid, directory=hist.dir,
+                                   writer=self.io_writer,
+                                   whole_grid=self.whole_grid)
+            for new, old in zip(self.history.streams, hist.streams):
+                new.acc, new.last, new.nacc = cut(old.acc), cut(old.last), \
+                    old.nacc
+        return self
+
+    def gather_state(self) -> State:
+        """The whole state on every rank (the state itself unless
+        sharded)."""
+        if not self.sharded:
+            return self.state
+        return self.mesh.gather_state(self.state, self.grid.global_shape)
 
     @property
     def istep(self) -> int:
@@ -318,8 +378,8 @@ class Model:
             rec = self._diagnose(state_pre)
             if s.print_points:
                 from .diagnostics import print_points_state
-                rec["points"] = print_points_state(self.grid, self.state,
-                                                   points=self.points)
+                rec["points"] = print_points_state(
+                    self.whole_grid, self.gather_state(), points=self.points)
             self.diag_log.append(rec)
         if s.debug_model and self.calendar.istep >= s.debug_model_step:
             self._debug_dump()
@@ -338,7 +398,8 @@ class Model:
         if i < 0 or j < 0:
             i, j = self.points[0]["i"], self.points[0]["j"]
         print(f"debug_model step {self.calendar.istep}:",
-              debug_ice(self.grid, self.state, j, i, stage="post_step"))
+              debug_ice(self.whole_grid, self.gather_state(), j, i,
+                        stage="post_step"))
 
     def _abort(self, exc: Exception):
         """Write an early checkpoint of the offending state, then raise."""
@@ -378,7 +439,8 @@ class Model:
                 f"freshwater budget closure violated at step {istep}: "
                 f"residual {rec['bud_water_residual']:.3e} kg vs budget "
                 f"{wscale:.3e} kg (early checkpoint written)"))
-        if bool(check_state(self.state)["nonfinite"]):
+        if bool(check_state(self.state,
+                            mesh=tile_mesh(self.grid.bc))["nonfinite"]):
             self._abort(FloatingPointError(
                 f"non-finite state at step {istep} (early checkpoint "
                 "written)"))
@@ -408,7 +470,9 @@ class Model:
         return write_restart(s.restart_dir, self.state, self.calendar,
                              s.pointer_file, prefix=s.restart_file,
                              fmt=s.restart_format, writer=self.io_writer,
-                             mesh=self.mesh)
+                             mesh=self.mesh,
+                             tiles_of=(self.grid.global_shape if self.sharded
+                                       else None))
 
     def flush_io(self) -> int:
         """Durability barrier of the background writer (nothing to wait for

@@ -29,7 +29,9 @@ import math
 import torch
 
 from .. import constants as cst
+from ..ops import lsum
 from ..columns.ocean import freezing_temperature
+from ..core.halo import TileBC
 from ..columns.orbit import OrbitalParams, compute_coszen, orb_params
 from .flux import Forcing, zeros_forcing
 
@@ -93,11 +95,29 @@ def _full(grid, v, dtype):
 # ---------------------------------------------------------------------------
 
 def _ij(grid, dtype):
-    ny, nx = grid.shape
+    """The 1-based global column and row of each cell over the global
+    extents (on a tile grid its own columns and rows)."""
+    ny, nx = grid.global_shape
+    ly, lx = grid.shape
+    y0, x0 = ((grid.bc.y0, grid.bc.x0) if isinstance(grid.bc, TileBC)
+              else (0, 0))
     dev = grid.device
-    ii = (torch.arange(nx, dtype=dtype, device=dev) + 1.0)[None, :] / nx
-    jj = (torch.arange(ny, dtype=dtype, device=dev) + 1.0)[:, None] / ny
+    ii = (torch.arange(x0, x0 + lx, dtype=dtype, device=dev)
+          + 1.0)[None, :] / nx
+    jj = (torch.arange(y0, y0 + ly, dtype=dtype, device=dev)
+          + 1.0)[:, None] / ny
     return ii, jj
+
+
+def _tiles(grid, raw: dict) -> dict:
+    """A dataset record's global (..., ny, nx) fields cut to the grid's
+    tile (as they are on a whole grid)."""
+    bc = grid.bc
+    if not isinstance(bc, TileBC):
+        return raw
+    return {k: (bc.tile(v) if torch.is_tensor(v) and v.ndim >= 2 and
+                tuple(v.shape[-2:]) == (bc.ny, bc.nx) else v)
+            for k, v in raw.items()}
 
 
 def box2001_atm(grid, timesecs: float, aice, fc: Forcing) -> Forcing:
@@ -252,7 +272,7 @@ def open_dataset(cfg, grid, kind: str):
     """The dataset of one stream (reference init_forcing_atmo): `kind` is
     an atmosphere name of FILE_ATM, 'hycom' or 'ocn' (the climatology)."""
     from ..io import forcing_files as ff
-    shp = grid.shape
+    shp = grid.global_shape
     f = cfg.forcing
     if kind == "ncar":
         ds = ff.ncar_dataset(f.atm_data_dir, shp, f.fyear_init, f.ycycle)
@@ -317,7 +337,7 @@ def get_forcing(cfg, grid, timesecs: float, yday: float, aice,
     elif atm in UNIFORM:
         fc = uniform_atm(grid, atm, 5.0, aice, fc)
     elif atm in FILE_ATM and f.atm_data_dir:
-        raw = dataset(atm).at_time(year, sec_of_year)
+        raw = _tiles(grid, dataset(atm).at_time(year, sec_of_year))
         fc = prepare_forcing(grid, cfg, raw, fc, yday)
         if "strax" in raw:      # hadgem: prescribed wind stress
             dt_ = fc.strax.dtype
@@ -333,7 +353,8 @@ def get_forcing(cfg, grid, timesecs: float, yday: float, aice,
         fc = box2001_ocn(grid, fc)
     elif ocn in ("clim", "ncar", "hycom") and f.ocn_data_dir:
         ds = dataset("hycom" if ocn == "hycom" else "ocn")
-        fc = file_ocn(grid, cfg, ds.at_time(year, sec_of_year), fc)
+        fc = file_ocn(grid, cfg, _tiles(grid, ds.at_time(year, sec_of_year)),
+                      fc)
     wst = f.wave_spec_type
     if wst == "file" and f.wave_spec_file:
         # a wave model's spectrum E(f), read per month; Hs and Tp from its
@@ -341,13 +362,15 @@ def get_forcing(cfg, grid, timesecs: float, yday: float, aice,
         if "wave" not in datasets:
             from ..io.forcing_files import wave_spec_dataset
             datasets["wave"] = wave_spec_dataset(f.wave_spec_file,
-                                                 grid.shape, grid.device)
+                                                 grid.global_shape,
+                                                 grid.device)
         month = int(yday // 30.4) % 12 + 1
         dt_ = fc.wind.dtype
-        E = datasets["wave"].at_month(month).to(dt_)
+        E = _tiles(grid, {"E": datasets["wave"].at_month(month)})["E"].to(
+            dt_)
         fr, df = wave_frequencies(dt_, E.device)
-        m0 = torch.sum(E * df[:, None, None], dim=0)
-        m1 = torch.sum(E * (fr * df)[:, None, None], dim=0)
+        m0 = lsum(E * df[:, None, None], dim=0)
+        m1 = lsum(E * (fr * df)[:, None, None], dim=0)
         hs = 4.0 * torch.sqrt(m0)
         Tp = torch.where(m1 > 0.0, m0 / torch.clamp(m1, min=1e-12), 8.0)
         fc = fc.replace(wave_spectrum=E, wave_hs=hs, wave_Tp=Tp)
@@ -408,6 +431,6 @@ def wave_spectrum_forcing(cfg, grid, aice, fc: Forcing) -> Forcing:
     Tp = torch.clamp(0.729 * fc.wind, min=2.0)
     E = bretschneider_spectrum(hs, Tp)
     _, df = wave_frequencies(E.dtype, E.device)
-    m0 = torch.sum(E * df[:, None, None], dim=0)
+    m0 = lsum(E * df[:, None, None], dim=0)
     return fc.replace(wave_hs=4.0 * torch.sqrt(m0), wave_Tp=Tp,
                       wave_spectrum=E)

@@ -15,6 +15,8 @@ from typing import Dict
 
 import torch
 
+from ..ops import lsum
+
 # Tracer dependency kinds (reference trcr_depend values):
 DEP_AICE = 0    # tracer carried per unit ice area fraction
 DEP_VICE = 1    # per unit ice volume
@@ -159,15 +161,15 @@ class State:
 
     @property
     def aice(self) -> torch.Tensor:
-        return self.aicen.sum(0)
+        return lsum(self.aicen)
 
     @property
     def vice(self) -> torch.Tensor:
-        return self.vicen.sum(0)
+        return lsum(self.vicen)
 
     @property
     def vsno(self) -> torch.Tensor:
-        return self.vsnon.sum(0)
+        return lsum(self.vsnon)
 
     @property
     def aice0(self) -> torch.Tensor:
@@ -178,7 +180,7 @@ class State:
 
 
 def zeros_state(cfg, grid) -> State:
-    ny, nx = grid.ny_global, grid.nx_global
+    ny, nx = grid.shape
     ncat = cfg.domain.ncat
     kw = dict(dtype=cfg.np_dtype, device=grid.device)
     z2 = lambda: torch.zeros((ny, nx), **kw)

@@ -6,9 +6,18 @@ port of cice_tpu/model/step.py; reference ice_step_mod.F90 `step_therm1`:224,
 Each phase is a dense tensor transformation over the global (ncat, ny, nx)
 state. `model_step` is one full step; `step_dyn_transport` is its ndtd
 dynamics/transport/ridging supercycle. Every option is ported; across
-ranks (`ModelStatic.mesh`) the EVP solve of evp_algorithm='wide_halo' is
-split into the ranks' tiles, and the rest of the step runs whole on every
-rank.
+ranks (`ModelStatic.mesh`) with a whole state on every rank the EVP solve
+of evp_algorithm='wide_halo' is split into the ranks' tiles, and the rest
+of the step runs whole on every rank.
+
+With the state sharded (a tile grid, `parallel.mesh.Mesh.tile_grid`) each
+rank steps its tiles: every neighbour access goes through the tile-aware
+`core.halo.shift`, every host decision reads a value agreed over the
+ranks (`core.reductions.agreed`, given the tile grid's mesh), the B-grid
+EVP of 'fused_pallas' and 'wide_halo' is the wide-halo solve on the tiles
+(K1 on each padded tile on the card), 'standard_2d' the plain loop, and
+K2/K3 run on padded tiles. `check_sharded` names what does not run
+sharded yet.
 """
 
 from __future__ import annotations
@@ -45,12 +54,14 @@ from ..columns.thermo_vertical import (adjust_enthalpy, bl99_salinity,
                                        temperature_changes,
                                        thickness_changes)
 from ..core.grid import Grid, grid_average_X2Y
+from ..core.halo import TileBC, tile_mesh
 from ..dynamics import evp_c
 from ..dynamics.common import deformations_B, dyn_prep, evp_params
 from ..dynamics.eap import eap_solve
 from ..dynamics.evp import evp_ocean_stress, evp_solve
 from ..dynamics.transport import ADVECT
 from ..dynamics.vp import implicit_solver
+from ..ops import lsum
 from .flux import Forcing, zeros_fluxout
 from .state import State, tracer_registry
 
@@ -122,6 +133,25 @@ def check_ported(cfg) -> None:
                 raise ValueError(
                     f"zbgc.{f.name}={v!r}: the mixed-layer concentrations "
                     "must be numbers; no BGC climatology reader exists")
+
+
+def check_sharded(cfg) -> None:
+    """Raise NotImplementedError for the dynamics that do not run on a
+    sharded state yet: EAP and VP (ROADMAP A8). The B-, C- and CD-grid
+    EVP, every transport and the column physics run."""
+    d = cfg.dynamics
+    what = None
+    if d.kdyn == 2:
+        what = ("EAP (kdyn=2: its yield-table index truncates float ratios, "
+                "and on the CPU float32 atan2 rounds by where a cell falls "
+                "in the vector loop, so tiles leave the whole grid)")
+    elif d.kdyn == 3:
+        what = "VP (kdyn=3: its Krylov inner products sum the grid)"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} on a state sharded across ranks: not ported yet "
+            "(ROADMAP A8: the whole step across ranks); a whole state on "
+            "every rank runs it")
 
 
 @dataclass(frozen=True)
@@ -340,7 +370,7 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         Iswabs=Isw, shcoef=co.shcoef, lhcoef=co.lhcoef,
         potT=fc.potT, Qa=fc.Qa, rhoa=fc.rhoa, flw=fc.flw,
         conduct=cfg.thermo.conduct, nit=cfg.thermo.nit,
-        ktherm=cfg.thermo.ktherm)
+        ktherm=cfg.thermo.ktherm, mesh=tile_mesh(grid.bc))
 
     th, dzi, dzs = thickness_changes(
         dt, nilyr, nslyr, hin=hin_solve * mask_f,
@@ -388,7 +418,7 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
             [torch.where(mask, x, sice_all[:, k])
              for k, x in enumerate(sice_r)], dim=1)
         # drained brine salt reaches the ocean (category-area weighted)
-        fsalt_drain = torch.sum(torch.where(mask, an, 0.0) * fsalt_d, dim=0)
+        fsalt_drain = lsum(torch.where(mask, an, 0.0) * fsalt_d, dim=0)
 
     hin_f = torch.where(mask, th.hin, 0.0)
     hsn_f = torch.where(mask, hsn_new, 0.0)
@@ -432,7 +462,7 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
 
     # aggregate cell-mean fluxes (weight: category area; sum over categories)
     w = torch.where(mask, an, 0.0)
-    ws = lambda x: torch.sum(w * x, dim=0)
+    ws = lambda x: lsum(w * x, dim=0)
     zero2 = torch.zeros_like(aice)
     # the hi_min floor before the vertical solve adds (hi_min - hin) of ice
     # to thin masked categories; that mass is drawn from the ocean so the
@@ -486,14 +516,14 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         **{k + "n": w * v for k, v in pond_diag.items()})
     # shortwave scaling factor: net SW at current forcing/albedos over the
     # absorbed SW of the radiation pass (==1: radiation runs in-step)
-    nsw = ((fc.swvdr + fc.swvdf + fc.swidr + fc.swidf) * torch.sum(w, dim=0)
+    nsw = ((fc.swvdr + fc.swvdf + fc.swidr + fc.swidf) * lsum(w, dim=0)
            - (fc.swvdr * agg["alvdr"] + fc.swvdf * agg["alvdf"]
               + fc.swidr * agg["alidr"] + fc.swidf * agg["alidf"]))
     agg["ncat_fluxes"]["scale_factor"] = torch.where(
         agg["fswabs"] > cst.puny,
         nsw / torch.clamp(agg["fswabs"], min=cst.puny), 1.0)
     agg["ncat_fluxes"]["fsloss"] = (zero2 if fsloss_n is None
-                                    else torch.sum(fsloss_n, dim=0))
+                                    else lsum(fsloss_n, dim=0))
     # the z network's interior diagnostics and the fluxes to the ocean of
     # the z tracers, aerosols (coupler Fioi_bcpho/bcphi/flxdst) and
     # isotopes
@@ -657,6 +687,9 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     cfg = ms.cfg
     d = cfg.dynamics
     p = evp_params(d, dt)
+    tiled = isinstance(grid.bc, TileBC)
+    if tiled:
+        check_sharded(cfg)
     strength = ice_strength(state.aicen, state.vicen, state.aice, state.vice,
                             d)
     if cfg.grid.grid_ice in ("C", "CD"):
@@ -679,7 +712,13 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
         state = state.replace(a11=a11, a12=a12)
     else:
         kw = {}
-        if d.evp_algorithm == "fused_pallas":
+        if tiled and d.evp_algorithm in ("fused_pallas", "wide_halo"):
+            # on tiles the fused kernel runs as the wide-halo solve: K1 on
+            # each rank's padded tile, k subcycles per halo exchange
+            from ..parallel.evp_wide import evp_solve_wide
+            solve = evp_solve_wide
+            kw = dict(mesh=grid.bc.mesh, k_fuse=d.evp_wide_k)
+        elif d.evp_algorithm == "fused_pallas":
             from ..kernels.evp import evp_solve_fused
             solve = evp_solve_fused
         elif d.evp_algorithm == "wide_halo":
@@ -777,7 +816,8 @@ def step_dyn_transport(ms: ModelStatic, grid: Grid, state: State,
                 aicen, vicen, vsnon, trcrn, rdg = ridge_ice(
                     cfg, state.aicen, state.vicen, state.vsnon, state.trcrn,
                     divu=dyn["divu"], Delta=dyn["Delta"], dt=dt_dyn,
-                    hin_max=hin_max, registry=ms.registry)
+                    hin_max=hin_max, registry=ms.registry,
+                    mesh=tile_mesh(grid.bc))
             state = state.replace(aicen=aicen, vicen=vicen, vsnon=vsnon,
                                   trcrn=trcrn)
             for k in _CLEANUP_KEYS:
@@ -843,18 +883,18 @@ def _step_bgc_skl(cfg, state: State, fc: Forcing, agg: dict, dt: float):
     trc.update(bout.trc)
     nf = agg["ncat_fluxes"]
     nf.update({f"fbgc_{k[4:]}": v for k, v in bout.flux_bgc_ocn.items()})
-    nf["grow_net"] = torch.sum(bout.grow_net * state.aicen, dim=0) / \
+    nf["grow_net"] = lsum(bout.grow_net * state.aicen, dim=0) / \
         aice_safe
     for nm, v in (("upNO", bout.upNO), ("upNH", bout.upNH),
                   ("PP_net", bout.PP_net)):
-        nf[nm] = torch.sum(v * state.aicen, dim=0)
+        nf[nm] = lsum(v * state.aicen, dim=0)
     return state.replace(trcrn=trc)
 
 
 def _mean_age(st: State):
     if "iage" not in st.trcrn:
         return torch.zeros_like(st.aice)
-    return torch.sum(st.trcrn["iage"] * st.aicen, dim=0) / \
+    return lsum(st.trcrn["iage"] * st.aicen, dim=0) / \
         torch.clamp(st.aice, min=cst.puny)
 
 

@@ -21,13 +21,19 @@ one more column stage. So every tile runs with open boundaries, and on the
 card a tripole grid's tiles go through K1 (kernels/evp.py), which takes no
 fold itself (ROADMAP A9).
 
+With the state sharded across the ranks (a tile grid, `core.halo.TileBC`)
+each rank's padded inputs are its own tiles, padded and filled by the same
+exchange; the solve returns this rank's tiles, and the force tail runs on
+the tile through the tile-aware shift. `padded_tiles` pads any stack of
+tiles so, for the transport kernels (kernels/remap.py).
+
 What runs the subcycles of a tile: on CUDA tensors (B grid) K1 on the
 padded tile, `nsub` subcycles per launch (a solve of f64 CUDA tensors
 raises there, as K1 does); on CPU tensors the plain `stress_update` +
 `stepu_dense` loop; on the C grid always the plain `c_subcycle_step` loop
 (no kernel computes the C-grid EVP). The interiors are gathered on every
 rank, and the final force diagnostics run on the whole grid, as the
-one-program solve's tail.
+one-program solve's tail (on the tile, for a sharded state).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.halo import BC
+from ..core.halo import BC, TileBC
 from ..dynamics.common import DynPrep, EvpParams, stepu_dense
 from ..dynamics.evp import evp_tail, stress_update
 
@@ -180,6 +186,22 @@ def halo_exchange(mesh, z: torch.Tensor, H: int, *, y_cyclic: bool,
     return z
 
 
+def padded_tiles(bc: TileBC, R: int, *tiles):
+    """Each (..., ly, lx) tile widened by R rings of the global arrays'
+    values around it, (..., ly+2R, lx+2R): zero past a non-cyclic global
+    edge, the wrap across a cyclic one. One exchange of all of them
+    stacked (no tripole fold: the callers refuse that grid)."""
+    flat = [t.reshape((-1,) + tuple(t.shape[-2:])) for t in tiles]
+    z = F.pad(torch.cat(flat), (R, R, R, R))
+    halo_exchange(bc.mesh, z, R, y_cyclic=bc.y_cyclic, x_cyclic=bc.x_cyclic)
+    out, at = [], 0
+    for t, f in zip(tiles, flat):
+        out.append(z[at:at + f.shape[0]].reshape(
+            tuple(t.shape[:-2]) + tuple(z.shape[-2:])))
+        at += f.shape[0]
+    return out
+
+
 def _b_fold_metas(ns_kind: str):
     """FoldMeta pairs (const, state) for the B-grid packed stacks.
 
@@ -245,8 +267,11 @@ def _tile_geometry(mesh, shape, radius: int, k_fuse: int, ndte: int):
     return ly, lx, k, radius * k
 
 
-def _padded_tile(mesh, x: torch.Tensor, H: int) -> torch.Tensor:
-    return F.pad(mesh.tile(x), (H, H, H, H))
+def _padded_tile(mesh, x: torch.Tensor, H: int,
+                 tiled: bool = False) -> torch.Tensor:
+    """This rank's tile of `x` (the whole array, or the tile itself if
+    `tiled`) with H zero rings for the exchange to fill."""
+    return F.pad(x if tiled else mesh.tile(x), (H, H, H, H))
 
 
 def evp_solve_wide(grid, p: EvpParams, prep: DynPrep, strength, stressp,
@@ -256,13 +281,17 @@ def evp_solve_wide(grid, p: EvpParams, prep: DynPrep, strength, stressp,
     stress12, strintx, strinty, taubx, tauby) on every rank. mesh=None
     runs the one-program solve `kernels.evp.evp_solve_fused`: K1 on CUDA
     tensors, equal bit for bit to the plain `evp_solve` it runs on CPU
-    tensors."""
-    if mesh is None:
+    tensors. On a tile grid the inputs are this rank's tiles, the solve
+    runs on the grid's mesh, and it returns this rank's tiles."""
+    tiled = isinstance(grid.bc, TileBC)
+    if tiled:
+        mesh = grid.bc.mesh
+    elif mesh is None:
         from ..kernels.evp import evp_solve_fused
         return evp_solve_fused(grid, p, prep, strength, stressp, stressm,
                                stress12, uocn=uocn, vocn=vocn)
-    ny, nx = grid.shape
-    ly, lx, k, H = _tile_geometry(mesh, grid.shape, 1, k_fuse, p.ndte)
+    ny, nx = grid.global_shape
+    ly, lx, k, H = _tile_geometry(mesh, (ny, nx), 1, k_fuse, p.ndte)
     dtype = prep.uvel.dtype
     DminTarea = p.deltaminEVP * grid.tarea
     m3 = prep.iceTmask[None]
@@ -277,10 +306,10 @@ def evp_solve_wide(grid, p: EvpParams, prep: DynPrep, strength, stressp,
     exch = dict(H=H, y_cyclic=grid.bc.y_cyclic, x_cyclic=grid.bc.x_cyclic,
                 ly=ly)
 
-    c = halo_exchange(mesh, _padded_tile(mesh, const, H), fold_meta=cmeta,
-                      **exch)                 # the constants: once
+    c = halo_exchange(mesh, _padded_tile(mesh, const, H, tiled),
+                      fold_meta=cmeta, **exch)    # the constants: once
     g, prep_l, strength_l, Dmin_l, uocn_l, vocn_l = _unpack_const(c)
-    s = _padded_tile(mesh, state, H)
+    s = _padded_tile(mesh, state, H, tiled)
     on_card = s.is_cuda
     if on_card:
         from ..kernels.evp import evp_solve_cuda
@@ -300,10 +329,12 @@ def evp_solve_wide(grid, p: EvpParams, prep: DynPrep, strength, stressp,
             u, v, _, _ = stepu_dense(u, v, strintx, strinty, prep_l, p,
                                      uocn_l, vocn_l)
         s = torch.cat([u[None], v[None], sp, sm, s12])
-    out = mesh.all_gather_tiles(s[:, H:H + ly, H:H + lx], ny, nx)
+    out = s[:, H:H + ly, H:H + lx]
+    if not tiled:
+        out = mesh.all_gather_tiles(out, ny, nx)
     u, v, sp, sm, s12 = out[0], out[1], out[2:6], out[6:10], out[10:14]
-    # the force diagnostics on the whole grid, as evp_solve's tail: the
-    # seam row's strint is then the one-program solve's for every boundary
+    # the force diagnostics on the grid, as evp_solve's tail: the seam
+    # row's strint is then the one-program solve's for every boundary
     strintx, strinty, taubx, tauby = evp_tail(grid, p, prep, strength,
                                               DminTarea, u, v, sp, sm, s12)
     return u, v, sp, sm, s12, strintx, strinty, taubx, tauby
@@ -329,17 +360,20 @@ def evp_c_solve_wide(grid, p: EvpParams, prep, strength, stresspT, stressmT,
                      stress12U, *, mesh, k_fuse: int = 4):
     """`dynamics.evp_c.evp_c_solve` with k_fuse subcycles per halo exchange
     on `mesh`; returns (final CEvpState, uvelU, vvelU) on every rank. A
-    tripole grid or mesh=None runs `evp_c_solve`."""
+    tripole grid or mesh=None runs `evp_c_solve`. On a tile grid the
+    inputs and outputs are this rank's tiles (the grid's mesh)."""
     from ..core.grid import grid_average_X2Y
     from ..dynamics.evp_c import (CEvpState, CPrep, _tarea_ring,
                                   _uarea_ring, c_subcycle_step, evp_c_solve)
 
+    tiled = isinstance(grid.bc, TileBC)
+    if tiled:
+        mesh = grid.bc.mesh
     if grid.bc.tripole or mesh is None:
         return evp_c_solve(grid, p, prep, strength, stresspT, stressmT,
                            stress12U)
-    ny, nx = grid.shape
-    ly, lx, k, H = _tile_geometry(mesh, grid.shape, C_RADIUS, k_fuse,
-                                  p.ndte)
+    ny, nx = grid.global_shape
+    ly, lx, k, H = _tile_geometry(mesh, (ny, nx), C_RADIUS, k_fuse, p.ndte)
     dtype = prep.uvelE_init.dtype
     f = lambda x: x.to(dtype)
     # the trailing indicator plane is one on the global domain: after the
@@ -358,7 +392,7 @@ def evp_c_solve_wide(grid, p: EvpParams, prep, strength, stresspT, stressmT,
     exch = dict(H=H, y_cyclic=grid.bc.y_cyclic, x_cyclic=grid.bc.x_cyclic)
     ng = len(_C_GRID_PLANES)
 
-    c = halo_exchange(mesh, _padded_tile(mesh, const, H), **exch)
+    c = halo_exchange(mesh, _padded_tile(mesh, const, H, tiled), **exch)
     g = SimpleNamespace(bc=_TILE_BC, **{nm: c[i] for i, nm in
                                         enumerate(_C_GRID_PLANES)})
     planes = list(c[ng:ng + len(prep)])
@@ -369,7 +403,7 @@ def evp_c_solve_wide(grid, p: EvpParams, prep, strength, stresspT, stressmT,
     strength_l, Dmin_l, ind = c[-3], c[-2], c[-1]
     rings = (_uarea_ring(g), _tarea_ring(g))
 
-    s = _padded_tile(mesh, state, H)
+    s = _padded_tile(mesh, state, H, tiled)
     for nsub in _chunks(p.ndte, k):
         s = halo_exchange(mesh, s, **exch)
         st = CEvpState(*s)
@@ -380,7 +414,9 @@ def evp_c_solve_wide(grid, p: EvpParams, prep, strength, stresspT, stressmT,
             # not survive (NaN * 0 = NaN)
             st = CEvpState(*(torch.where(ind > 0, x, 0.0) for x in st))
         s = torch.stack(list(st))
-    out = mesh.all_gather_tiles(s[:, H:H + ly, H:H + lx], ny, nx)
+    out = s[:, H:H + ly, H:H + lx]
+    if not tiled:
+        out = mesh.all_gather_tiles(out, ny, nx)
     final = CEvpState(*out)
     uvelU = grid_average_X2Y("S", final.uvelE, "E", "U", grid)
     vvelU = grid_average_X2Y("S", final.vvelN, "N", "U", grid)

@@ -26,13 +26,19 @@ tensors directly. The counters, split so that they add up:
 - `wire_seconds`: the host's time in the process group's calls, the
   wait for the peers included.
 
-With no process group a Mesh is a 1x1 grid of the one process. The state
-stays whole on every rank: sharding it (`shard_state`) is the third part
-of ROADMAP A8 and raises.
+With no process group a Mesh is a 1x1 grid of the one process.
+
+A run with the state sharded across the ranks (model.driver.Model with
+`shard=True`) holds on each rank its tile of every (..., ny, nx) array:
+`shard_state` tiles a tree of arrays, `gather_state` makes it whole again
+on every rank, and `tile_grid` gives a Grid of this rank's tiles whose
+boundary (`core.halo.TileBC`) makes every `shift` on it a tile of the
+global shift. Tiles may be unequal (`split`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional, Sequence
 
@@ -269,31 +275,88 @@ class Mesh:
     def all_gather_tiles(self, tile: torch.Tensor, ny: int,
                          nx: int) -> torch.Tensor:
         """The global (..., ny, nx) array whose tiles are the ranks'
-        `tile`s (all of one shape)."""
+        `tile`s. Unequal tiles travel padded to the largest."""
         sy, sx = self.tile_slices(ny, nx)
         if tuple(tile.shape[-2:]) != (sy.stop - sy.start, sx.stop - sx.start):
             raise ValueError(f"tile {tuple(tile.shape)} is not this rank's "
                              f"tile of a {ny}x{nx} grid")
         if self.size == 1:
             return tile.clone()
-        if ny % self.shape[0] or nx % self.shape[1]:
-            raise ValueError(f"all_gather_tiles needs equal tiles: {ny}x{nx}"
-                             f" on a {self.shape[0]}x{self.shape[1]} mesh")
-        parts = self.all_gather(tile.contiguous())
+        ty, tx = -(-ny // self.shape[0]), -(-nx // self.shape[1])
+        wire = tile.new_zeros(tile.shape[:-2] + (ty, tx))
+        wire[..., :tile.shape[-2], :tile.shape[-1]] = tile
+        parts = self.all_gather(wire)
         out = torch.empty(tile.shape[:-2] + (ny, nx), dtype=tile.dtype,
                           device=tile.device)
         for r, part in zip(self.group_ranks, parts):
             sy, sx = self.tile_slices(ny, nx, self.coords_of(r))
-            out[..., sy, sx] = part
+            out[..., sy, sx] = part[..., :sy.stop - sy.start,
+                                    :sx.stop - sx.start]
         return out
 
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier(group=self.group)
 
-    # -- the third part of A8 -------------------------------------------------
-    def shard_state(self, tree):
-        raise NotImplementedError(
-            "sharding the state across ranks is not ported yet (ROADMAP A8: "
-            "the whole step across ranks); the state stays whole on every "
-            "rank and only the EVP solve is tiled")
+    # -- sharded state ------------------------------------------------------
+    def shard_state(self, tree, shape: Optional[Sequence[int]] = None):
+        """`tree` (a dataclass, dict, list or tuple of tensors, nested) with
+        each leaf of two or more dimensions replaced by a contiguous copy of
+        this rank's tile, or with `shape` = (ny, nx) each leaf whose last
+        two dimensions are (ny, nx); other leaves stay as they are
+        (replicated), as `cice_tpu.parallel.mesh.shard_state` lays them."""
+        def cut(x):
+            if x.ndim < 2 or (shape is not None and
+                              tuple(x.shape[-2:]) != tuple(shape)):
+                return x
+            return self.tile(x).clone(memory_format=torch.contiguous_format)
+        return map_tree(cut, tree)
+
+    def gather_state(self, tree, shape: Sequence[int]):
+        """The inverse of `shard_state` for a global (ny, nx) = `shape`:
+        each leaf whose last two dimensions are this rank's tile becomes
+        the whole array, on every rank."""
+        ny, nx = shape
+        sy, sx = self.tile_slices(ny, nx)
+        tshape = (sy.stop - sy.start, sx.stop - sx.start)
+
+        def whole(x):
+            if x.ndim < 2 or tuple(x.shape[-2:]) != tshape:
+                return x
+            return self.all_gather_tiles(x, ny, nx)
+        return map_tree(whole, tree)
+
+    def tile_bc(self, bc, shape: Sequence[int]):
+        """The `core.halo.TileBC` of this rank's tile of a global (ny, nx)
+        = `shape` grid with boundary `bc`."""
+        from ..core.halo import TileBC
+        ny, nx = shape
+        sy, sx = self.tile_slices(ny, nx)
+        return TileBC(ew=bc.ew, ns=bc.ns, mesh=self, ny=ny, nx=nx,
+                      y0=sy.start, x0=sx.start, ly=sy.stop - sy.start,
+                      lx=sx.stop - sx.start)
+
+    def tile_grid(self, grid):
+        """A Grid of this rank's tiles of `grid` (whole): every metric and
+        mask tiled, the boundary a `core.halo.TileBC`."""
+        from ..core.grid import tile_grid
+        return tile_grid(grid, self)
+
+
+def map_tree(fn, tree):
+    """`tree` with fn applied to every tensor leaf: dataclasses (rebuilt
+    with `dataclasses.replace`), dicts, lists and tuples are walked; other
+    leaves stay."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tree(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(map_tree(fn, v) for v in tree)
+    if isinstance(tree, tuple):                 # a NamedTuple
+        return type(tree)(*(map_tree(fn, v) for v in tree))
+    return tree

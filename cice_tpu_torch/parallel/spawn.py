@@ -3,14 +3,17 @@
     results = launch(jobs, world=8, workdir=tmpdir)
 
 `launch` starts `world` processes (start method `spawn`), joins them in a
-gloo process group over a `file://` rendezvous in `workdir` (no port to
-collide with another run's), and runs every job on every rank in order. A
+gloo process group (or NCCL, `backend='nccl'`, rank r on card r) over a
+`file://` rendezvous in `workdir` (no port to collide with another run's),
+and runs every job on every rank in order. A
 job is (fn, kwargs, nranks): `fn`, a name in `JOBS` or a function defined
 at the top of a module, runs on ranks 0 .. nranks-1 in a group of their
 own and gets that group as `group=`; the other ranks skip it. `launch`
 returns, per job, the list of the ranks' results (None where a rank
 skipped), and raises with the failing rank's traceback if one raised, or
-TimeoutError.
+TimeoutError. The process group waits `group_timeout` seconds for a peer
+(60 by default), so a rank left waiting by a peer that took another branch
+fails within a minute.
 
 The processes start from a fresh interpreter with the caller's `sys.path`
 and import torch, this package and the module of each job's function, so
@@ -20,12 +23,15 @@ files that `save` writes and `load` reads (pickles this package writes
 itself). The ranks may share one CUDA device: each job names its
 `device`.
 
-`JOBS` holds what `chip_smoke.py` phase 14 runs across ranks: the
-wide-halo EVP on the B and C grids, whole model steps and global sums.
+`JOBS` holds what `chip_smoke.py` phases 14 and 15 and the CLI's `test
+--type decomp` and `perf --mesh` run across ranks: the wide-halo EVP on the
+B and C grids, whole model steps (the state whole on every rank, or
+sharded), EVP solves on a sharded state, and global sums.
 """
 
 from __future__ import annotations
 
+import datetime
 import hashlib
 import os
 import pickle
@@ -204,6 +210,78 @@ def _job_model_steps(*, group, cfg, nsteps, shape, device="cpu",
                         wire_seconds=mesh.wire_seconds))
 
 
+def _counters(mesh) -> dict:
+    from ..kernels import evp as kevp
+    from ..kernels import remap as kremap
+    return dict(k1_launches=kevp.launches, k2_launches=kremap.launches,
+                k3_launches=kremap.flux_launches, exchanges=mesh.exchanges,
+                staged_bytes=mesh.staged_bytes,
+                staged_seconds=mesh.staged_seconds,
+                wait_seconds=mesh.wait_seconds,
+                wire_seconds=mesh.wire_seconds)
+
+
+def _job_sharded_steps(*, group, cfg, nsteps, shape, device="cpu",
+                       write_restart=False, history=False):
+    """`nsteps` Model steps with the state sharded on a `shape` mesh (a
+    dump at the end with `write_restart`, history with `history`); the
+    whole state's leaves,
+    gathered, and per rank the kernels' launches, the messages, the bytes
+    staged and the seconds of the steps (host clock after a synchronise)
+    with their split into staging copies, waits for the card and gloo
+    calls, as totals over the steps."""
+    from ..model.driver import Model
+    from ..model.state import state_leaves
+    from .mesh import Mesh
+    mesh = Mesh(shape, group=group)
+    m = Model(cfg, device=device, mesh=mesh, shard=True,
+              enable_history=history)
+    _sync(device)
+    c0 = _counters(mesh)
+    t0 = time.perf_counter()
+    for _ in range(nsteps):
+        m.step()
+    _sync(device)
+    sec = time.perf_counter() - t0
+    stats = {k: v - c0[k] for k, v in _counters(mesh).items()}
+    path = m.write_restart() if write_restart else None
+    m.flush_io()
+    stats.update(seconds=sec, steps=nsteps, coords=mesh.coords,
+                 tile=tuple(m.grid.shape), restart=path,
+                 istep=m.calendar.istep)
+    return rank_result(mesh, state_leaves(m.gather_state()), stats)
+
+
+def _job_evp_sharded(*, group, problem, shape, k_fuse, algo, device="cpu",
+                     repeat=1):
+    """One EVP solve on a sharded state of a `shape` mesh, `repeat` times:
+    'wide' the wide-halo solve on the tiles (K1 on each padded tile on the
+    card), 'plain' the plain loop through the tile-aware shift (a message
+    per shift). Returns the gathered outputs, the best solve's seconds and
+    the last solve's launches and messages."""
+    from ..dynamics.evp import evp_solve
+    from .evp_wide import evp_solve_wide
+    from .mesh import Mesh
+    (grid, p, *fields), kw = b_problem_from_numpy(load(problem), device)
+    mesh = Mesh(shape, group=group)
+    shp = grid.shape
+    args = (mesh.tile_grid(grid), p, *mesh.shard_state(fields, shp))
+    kw = mesh.shard_state(kw, shp)
+    best = float("inf")
+    for _ in range(repeat):
+        _sync(device)
+        c0 = _counters(mesh)
+        t0 = time.perf_counter()
+        out = (evp_solve_wide(*args, **kw, mesh=mesh, k_fuse=k_fuse)
+               if algo == "wide" else evp_solve(*args, **kw))
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    stats = {k: v - c0[k] for k, v in _counters(mesh).items()}
+    stats.update(seconds=best, coords=mesh.coords)
+    return rank_result(mesh, [mesh.all_gather_tiles(x, *shp) for x in out],
+                       stats)
+
+
 def _job_global_sums(*, group, fields, shape, modes, device="cpu"):
     """{name: {mode: sum}} of global_sum over this rank's tile of each
     field (a file of {name: array}) on a `shape` mesh."""
@@ -219,23 +297,29 @@ def _job_global_sums(*, group, fields, shape, modes, device="cpu"):
 
 
 JOBS = {"evp_b": _job_evp_b, "evp_c": _job_evp_c,
-        "model_steps": _job_model_steps, "global_sums": _job_global_sums}
+        "model_steps": _job_model_steps, "global_sums": _job_global_sums,
+        "sharded_steps": _job_sharded_steps,
+        "evp_sharded": _job_evp_sharded}
 
 
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
 
-def _child(rank, world, init_file, jobs, q):
+def _child(rank, world, init_file, jobs, q, group_timeout, backend):
     import torch.distributed as dist
     torch.set_num_threads(1)
+    wait = datetime.timedelta(seconds=group_timeout)
     try:
-        dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                                rank=rank, world_size=world)
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                rank=rank, world_size=world, timeout=wait)
         results = []
         for fn, kw, n in jobs:
             # every rank takes part in making each group
-            group = dist.new_group(list(range(n))) if n < world else None
+            group = (dist.new_group(list(range(n)), timeout=wait)
+                     if n < world else None)
             fn = JOBS[fn] if isinstance(fn, str) else fn
             results.append(fn(group=group, **kw) if rank < n else None)
         q.put((rank, results, None))
@@ -247,10 +331,12 @@ def _child(rank, world, init_file, jobs, q):
             dist.destroy_process_group()
 
 
-def launch(jobs, world: int, workdir: str, *,
-           timeout: float = 600.0) -> list:
+def launch(jobs, world: int, workdir: str, *, timeout: float = 600.0,
+           group_timeout: float = 60.0, backend: str = "gloo") -> list:
     """Run `jobs` on `world` spawned ranks (one CPU thread each); returns
-    [per job: [per rank: result]]."""
+    [per job: [per rank: result]]. `group_timeout`: seconds a rank waits
+    for a peer in any message or collective (ranks that skip a job wait
+    for the others at the next job's group)."""
     import torch.multiprocessing as mp
     for fn, _, n in jobs:
         if not (callable(fn) or fn in JOBS) or not 1 <= n <= world:
@@ -261,7 +347,8 @@ def launch(jobs, world: int, workdir: str, *,
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     procs = [ctx.Process(target=_child,
-                         args=(r, world, init_file, jobs, q))
+                         args=(r, world, init_file, jobs, q,
+                               group_timeout, backend))
              for r in range(world)]
     for pr in procs:
         pr.start()

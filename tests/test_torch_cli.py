@@ -3,8 +3,8 @@ option-set table, composition of --opts and --set, "{FIX}" resolution to
 the port's own fixture root, compare_series on the committed r05 series,
 the unknown-option message, a smoke test and a restart test on the CPU,
 and the commands of the coupling and I/O slice: case, suite (the JAX
-package's table; rows that need ROADMAP A8 fail and the suite exits 1),
-perf (on the CPU; a mesh above 1 raises naming A8), qc against the JAX
+package's table; the decomp suite's rows pass on 8 spawned gloo ranks),
+perf (on the CPU, on one rank and on two spawned ranks), qc against the JAX
 package's on the same arrays and history files, and the plots; `python -m
 cice_tpu_torch`, `run --profile`, and the option sets evpwide, iopio and
 iopio2 on the CPU, with the io suite's iopio row."""
@@ -130,9 +130,11 @@ def test_unported_option_sets_raise_naming_the_roadmap():
     """No option set raises any more. `evpwide` and `gridc,evpwide`, which
     raised naming A8 until the wide-halo EVP was ported, build a Model
     that steps (one process has no mesh: the one-program solve, as in the
-    JAX package; parallel/evp_wide.py); sharding the state is what still
-    names A8. `ioasync` (the background writer), which raised naming A7
-    until coupling and I/O were ported, builds a Model that steps, and so
+    JAX package; parallel/evp_wide.py); `Mesh.shard_state`, which named
+    A8 until the state could be sharded, gives the tiles of a 1x1 mesh:
+    copies of the whole leaves. `ioasync` (the background writer), which
+    raised naming A7 until coupling and I/O were ported, builds a Model
+    that steps, and so
     does `modal` (aerosols with modal optics in dEdd), which raised until
     the biogeochemistry was ported."""
     from cice_tpu_torch.model.driver import Model
@@ -145,8 +147,11 @@ def test_unported_option_sets_raise_naming_the_roadmap():
         assert m.cfg.dynamics.evp_algorithm == "wide_halo"
         m.run(1)
         assert np.isfinite(m.state.aice.numpy()).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Mesh().shard_state(m.state)
+    from cice_tpu_torch.model.state import state_leaves
+    tiles = Mesh().shard_state(m.state)
+    for a, b in zip(state_leaves(tiles), state_leaves(m.state)):
+        assert torch.equal(a, b)
+        assert a.ndim < 2 or a.data_ptr() != b.data_ptr()
     cfg = tcli._default_test_cfg(_args("ioasync", type="smoke"),
                                  tcli.build_config(_args("ioasync")))
     m = Model(cfg.with_overrides(**{"grid.nx_global": 12,
@@ -227,12 +232,14 @@ def test_suite_quick_on_a_small_grid(capsys):
 
 
 def test_a_suite_row_that_needs_a8_fails_and_the_suite_exits_1(capsys):
+    """The decomp suite's rows, which needed ROADMAP A8 and failed until
+    the state could be sharded, pass: 2 steps on 2x4 and on 4x2 spawned
+    gloo ranks equal 2 steps of one process (largest deviation 0.0)."""
     rc = tcli.main(["suite", "--name", "decomp", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert rc == 1 and "0/2 passed" in out
-    assert out.count("NotImplementedError") == 2 and "ROADMAP A8" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tcli.main(["test", "--type", "decomp", "--device", "cpu"])
+    assert rc == 0 and "2/2 passed" in out, out
+    assert out.count("PASS test_decomp") == 2
+    assert out.count("largest deviation 0.0 of the field's scale") == 4
 
 
 def test_restart_test_through_the_background_writer(capsys):
@@ -252,9 +259,20 @@ def test_perf_on_the_cpu_and_the_mesh_refusal(capsys):
     assert [r["grid"] for r in rows] == ["12x10", "24x20", "24x20", "8x8"]
     assert all(r["route"] == "plain" and r["device"] == "cpu" and
                r["Mptsub_s"] > 0 for r in rows)
-    for mesh in ("2", "1,2,4,8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tcli.main(["perf", "--device", "cpu", "--mesh", mesh])
+    # two ranks: the JAX package's two rows per sweep, on gloo, no card
+    rc = tcli.main(["perf", "--device", "cpu", "--sizes", "12x10,24x20",
+                    "--ndte", "4", "--weak-tile", "8x8", "--mesh", "1,2"])
+    rows = [json.loads(line) for line in
+            capsys.readouterr().out.strip().splitlines()]
+    two = [r for r in rows if r["devices"] == 2]
+    assert rc == 0 and len(rows) == 8
+    assert [(r["sweep"], r["algo"], r["grid"], r["mesh"]) for r in two] == [
+        ("strong", "standard_2d", "24x20", "1x2"),
+        ("strong", "wide_halo", "24x20", "1x2"),
+        ("weak", "standard_2d", "8x16", "1x2"),
+        ("weak", "wide_halo", "8x16", "1x2")]
+    assert all(r["backend"] == "gloo" and r["cards"] == 0 and
+               r["Mptsub_s"] > 0 and r["efficiency"] > 0 for r in two)
 
 
 def test_perf_inputs_are_the_jax_packages():

@@ -14,6 +14,10 @@ with
   and the bytes staged are counted exactly.
 - One process without a mesh runs evp_algorithm='wide_halo' through K1 on
   the whole grid, bit for bit as 'fused_pallas'.
+- With the state sharded on 1x2 and 2x1 ranks, two steps of
+  gx1pop_step(48, 40) through K1 + K3 and (remap_kernel='auto') K1 + K2
+  equal two steps of one process bit for bit, with K1 and K3 (or K2)
+  launched on every rank's tile.
 """
 
 import os
@@ -123,3 +127,29 @@ def test_one_process_wide_halo_step_launches_k1(cuda):
     assert out["wide_halo"][0] == out["fused_pallas"][0]
     for a, b in zip(out["wide_halo"][1], out["fused_pallas"][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["fused_pallas", "auto"])
+def test_sharded_steps_launch_on_every_tile(cuda, kernel, tmp_path):
+    from cice_tpu_torch.config import gx1pop_step
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.state import state_leaves
+    cfg = gx1pop_step(48, 40, remap_kernel=kernel)
+    one = Model(cfg, device="cuda")
+    one.step()
+    one.step()
+    ref = [x.cpu().numpy() for x in state_leaves(one.state)]
+    shapes = [(1, 2), (2, 1)]
+    res = spawn.launch([("sharded_steps", dict(cfg=cfg, nsteps=2,
+                                               shape=shape, device="cuda"),
+                         2) for shape in shapes], 2, str(tmp_path),
+                       timeout=600.0)
+    flux = "k2_launches" if kernel == "auto" else "k3_launches"
+    for r in res:
+        assert len({x["digest"] for x in r}) == 1
+        for a, b in zip(r[0]["out"], ref):
+            np.testing.assert_array_equal(a, b)
+        for x in r:
+            st = x["stats"]
+            assert st["k1_launches"] >= 2 and st[flux] >= 2, st
+            assert st["staged_bytes"] > 0 and st["exchanges"] > 0

@@ -1,6 +1,7 @@
 """Rank jobs that only the tests run across spawned gloo ranks
-(`cice_tpu_torch.parallel.spawn.launch`): mesh layouts and sharded I/O,
-and the launcher's own tests.
+(`cice_tpu_torch.parallel.spawn.launch`): mesh layouts, sharded I/O, the
+tile-aware halo functions and a rank that leaves out a shift, and the
+launcher's own tests.
 
 The ranks import this module to find the jobs, so it imports pytest,
 torch and the port only, never JAX (test_torch_evp_wide.py and
@@ -85,6 +86,90 @@ def read_restart(*, group, path, template, shape, device="cpu"):
     return rank_result(mesh, state_leaves(st), dict(istep=cal.istep))
 
 
+#: the field locations and types a tripole fold tells apart
+LOCS = ("center", "necorner", "eface", "nface")
+FTYPES = ("scalar", "vector", "angle")
+
+
+def halo_checks(*, group, shape, grid_shape, seed=0):
+    """Every function of core.halo on this rank's tile (`Mesh.tile_bc`)
+    against this rank's tile of its result on the whole array: `shift` for
+    every (dj, di) in [-2, 2]^2, `neighbors4`, `extrapolate_edges` and
+    `apply_closed_mask` (1 and 2 rows), for ew cyclic/open/closed times ns
+    open/closed/cyclic/tripole/tripoleT, every location and type at a
+    tripole seam. Returns {function: (cases, the cases not equal)}."""
+    from cice_tpu_torch import constants as cst
+    from cice_tpu_torch.core import halo
+    loc = {"center": cst.FIELD_LOC_CENTER, "necorner": cst.FIELD_LOC_NECORNER,
+           "eface": cst.FIELD_LOC_EFACE, "nface": cst.FIELD_LOC_NFACE}
+    ftype = {"scalar": cst.FIELD_TYPE_SCALAR,
+             "vector": cst.FIELD_TYPE_VECTOR, "angle": cst.FIELD_TYPE_ANGLE}
+    mesh = Mesh(shape, group=group)
+    ny, nx = grid_shape
+    gen = torch.Generator().manual_seed(seed)
+    f = torch.rand((2, ny, nx), generator=gen, dtype=torch.float64)
+    out = {k: [0, []] for k in ("shift", "neighbors4", "extrapolate_edges",
+                                "apply_closed_mask")}
+
+    def check(what, want, got, case):
+        out[what][0] += 1
+        if not (len(want) == len(got) and
+                all(torch.equal(a, b) for a, b in zip(want, got))):
+            out[what][1].append(case)
+
+    for ew in ("cyclic", "open", "closed"):
+        for ns in ("open", "closed", "cyclic", "tripole", "tripoleT"):
+            bc = halo.BC(ew, ns)
+            tbc = mesh.tile_bc(bc, (ny, nx))
+            ft = tbc.tile(f).contiguous()
+            kinds = ([(lc, ty) for lc in LOCS for ty in FTYPES]
+                     if bc.tripole else [("center", "scalar")])
+            for lc, ty in kinds:
+                kw = dict(loc=loc[lc], ftype=ftype[ty])
+                for dj in range(-2, 3):
+                    for di in range(-2, 3):
+                        check("shift",
+                              [tbc.tile(halo.shift(f, dj, di, bc=bc, **kw))],
+                              [halo.shift(ft, dj, di, bc=tbc, **kw)],
+                              (ew, ns, lc, ty, dj, di))
+                check("neighbors4",
+                      [tbc.tile(x) for x in halo.neighbors4(f, bc=bc, **kw)],
+                      list(halo.neighbors4(ft, bc=tbc, **kw)),
+                      (ew, ns, lc, ty))
+            check("extrapolate_edges",
+                  [tbc.tile(halo.extrapolate_edges(f, bc))],
+                  [halo.extrapolate_edges(ft, tbc)], (ew, ns))
+            for nrows in (1, 2):
+                check("apply_closed_mask",
+                      [tbc.tile(halo.apply_closed_mask(f, bc, nrows))],
+                      [halo.apply_closed_mask(ft, tbc, nrows)],
+                      (ew, ns, nrows))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def skip_a_shift(*, group):
+    """On a 1x2 mesh rank 0 leaves out a shift that rank 1 makes: rank 1
+    waits for a message that never comes."""
+    from cice_tpu_torch.core import halo
+    mesh = Mesh((1, 2), group=group)
+    bc = mesh.tile_bc(halo.BC("cyclic", "open"), (4, 8))
+    if mesh.rank == mesh.group_ranks[0]:
+        return "skipped"
+    return halo.shift(torch.zeros(4, 4), 0, 1, bc=bc)
+
+
+def gather_unequal(*, group, shape, grid_shape):
+    """shard_state then gather_state of a (3, ny, nx) array and a 0-d one
+    on `shape` (tiles of unequal sizes where the shape does not divide)."""
+    mesh = Mesh(shape, group=group)
+    x = torch.arange(3 * grid_shape[0] * grid_shape[1],
+                     dtype=torch.float64).reshape((3,) + tuple(grid_shape))
+    tiles = mesh.shard_state({"x": x, "s": torch.tensor(2.0)})
+    back = mesh.gather_state(tiles, grid_shape)
+    return dict(tile=tuple(tiles["x"].shape), equal=torch.equal(back["x"], x),
+                scalar=float(back["s"]))
+
+
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
@@ -107,4 +192,5 @@ def test_jobs_by_name_and_by_function(tmp_path):
     assert [r["backend"] for r in res[0]] == ["gloo", "gloo"]
     assert res[1][0]["ranks"] == [[0]] and res[1][1] is None
     assert set(spawn.JOBS) == {"evp_b", "evp_c", "model_steps",
-                               "global_sums"}
+                               "global_sums", "sharded_steps",
+                               "evp_sharded"}
