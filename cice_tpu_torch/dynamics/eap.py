@@ -11,7 +11,9 @@ kernels. The lookup picks the nearest lower entry (the reference's
 interpolate_stress_rdg=.false.): a float ratio truncated to an integer, so
 an input one ulp from a bin edge may pick the neighbouring entry. The
 `ndte` subcycles are a Python loop sharing the B-grid stress divergence
-and momentum step with the EVP solver.
+and momentum step with the EVP solver. On a state sharded across ranks
+they run as the wide-halo EVP runs (`parallel.evp_wide.eap_solve_wide`):
+`_subcycle` on each rank's padded tile, several per halo exchange.
 """
 
 from __future__ import annotations
@@ -286,7 +288,13 @@ def eap_solve(grid: Grid, p: EvpParams, prep: DynPrep, strength,
                   torch.where(m3, stress12, 0.0), a11, a12)
     for _ in range(p.ndte):
         st = _subcycle(grid, p, prep, strength, tabs, uocn, vocn, st)
+    return eap_finish(grid, p, prep, strength, tabs, st)
 
+
+def eap_finish(grid: Grid, p: EvpParams, prep: DynPrep, strength, tabs,
+               st: EapState):
+    """The outputs of `eap_solve` from the state after its subcycles: the
+    force diagnostics and the yield-surface stress at that state."""
     strintx, strinty = stress_divergence(grid, *st.stressp, *st.stressm,
                                          *st.stress12)
     Cb = prep.TbU / (torch.sqrt(st.uvel ** 2 + st.vvel ** 2) + cst.u0)

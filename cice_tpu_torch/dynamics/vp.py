@@ -12,16 +12,31 @@ the restart cycles, `dim_pgmres`) and convergence masks finished work
 (`active`, `done`) instead of ending a loop, so the solve makes no host read:
 the small least-squares problems are solved on the device too
 (`hessenberg_lstsq`, `tall_lstsq`).
+
+On a state sharded across ranks (a tile grid, `core.halo.TileBC`) each rank
+solves on its tile. Every reduction over the grid (the Krylov inner
+products and norms, Anderson's least squares, the nonlinear residual) goes
+through `grid_sum` / `grid_norm`: each rank reduces its tile and the ranks'
+partial sums are added in rank order (`Mesh.all_sum`), so every rank reads
+the same bits; without a mesh they are the plain calls. The operator reads
+its neighbours through a `Stencil`: the rank's tile padded by VP_RADIUS
+rings, refreshed by one exchange per application (CICE's one halo update
+per matvec), and cropped back to the tile. On a tripole grid's tiles the
+stencil is the tile itself and every shift is the tile-aware shift (a
+message each). The small least squares work on replicated arrays and send
+nothing.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from types import SimpleNamespace
+from typing import Callable, NamedTuple
 
 import torch
 
 from .. import constants as cst
 from ..core.grid import Grid
+from ..core.halo import BC, TileBC, tile_mesh
 from .common import (RHEO_AREA_MIN, DynPrep, EvpParams, evp_params,
                      strain_rates_B, visc_replpress)
 from .evp import stress_divergence
@@ -79,6 +94,135 @@ def rep_pressure_force(grid: Grid, visc: VpViscosity):
 
 
 # ---------------------------------------------------------------------------
+# reductions over the grid, and where the operator reads its neighbours
+# ---------------------------------------------------------------------------
+
+def grid_sum(local: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A sum over the grid from `local`, this rank's partial sum(s) over
+    its tile (any shape): `local` itself without a mesh, else the ranks'
+    partials added in rank order (`Mesh.all_sum`), the same bits on every
+    rank. The one helper every grid-wide reduction of the solver takes;
+    a mesh of one rank is no mesh."""
+    return local if mesh is None or mesh.size == 1 else mesh.all_sum(local)
+
+
+def grid_norm(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The 2-norm over the grid: `torch.linalg.vector_norm(x)` without a
+    mesh, else the square root of the ranks' sums of squares
+    (`grid_sum`)."""
+    if mesh is None or mesh.size == 1:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(grid_sum(torch.sum(x * x), mesh))
+
+
+#: rings of neighbours the operator reads per side: the corner strain
+#: rates read u, v one cell west, south and south-west
+#: (`common.strain_rates_B`), the stress divergence reads the T-cell terms
+#: one cell east, north and north-east (`evp.stress_divergence`), so an
+#: owned U point depends on the iterate within one ring
+VP_RADIUS = 1
+
+#: the grid metrics the operator reads
+_GEOMETRY = ("dxT", "dyT", "cxm", "cxp", "cym", "cyp", "dxhy", "dyhx",
+             "uarear")
+
+
+class Stencil:
+    """Where the VP operator reads its neighbours. On a whole grid, or on
+    a tile of a tripole grid (every shift a tile-aware message), the grid
+    itself: `pad` and `crop` return their input. On a tile of any other
+    sharded grid, this rank's tile padded by VP_RADIUS rings of the global
+    values (zero past a non-cyclic edge, the wrap across a cyclic one):
+    the metrics, strength and DminTarea once, each iterate by one exchange
+    (`parallel.evp_wide.padded_tiles`); the stencils run on the padded
+    tile with open boundaries and `crop` keeps the owned interior, which
+    is the whole-grid result bit for bit (the same operations on the same
+    values)."""
+
+    def __init__(self, grid: Grid, strength, DminTarea):
+        bc = grid.bc
+        self.bc = bc
+        self.mesh = tile_mesh(bc)
+        self.radius = VP_RADIUS if (isinstance(bc, TileBC) and
+                                    not bc.tripole) else 0
+        if not self.radius:
+            self.grid, self.strength, self.DminTarea = grid, strength, \
+                DminTarea
+            return
+        planes = torch.stack([getattr(grid, k) for k in _GEOMETRY] +
+                             [strength, DminTarea])
+        c = self.pad(planes)
+        self.grid = SimpleNamespace(bc=BC(ew="open", ns="open"),
+                                    shape=tuple(c.shape[-2:]),
+                                    **{k: c[i] for i, k in
+                                       enumerate(_GEOMETRY)})
+        self.strength, self.DminTarea = c[-2], c[-1]
+
+    def pad(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., ly, lx) -> (..., ly+2R, lx+2R): one exchange."""
+        if not self.radius:
+            return x
+        from ..parallel.evp_wide import padded_tiles
+        return padded_tiles(self.bc, self.radius, x)[0]
+
+    def crop(self, x: torch.Tensor) -> torch.Tensor:
+        r = self.radius
+        return x[..., r:-r, r:-r] if r else x
+
+    def velocities(self, u, v):
+        """(u, v) where the stencils read them (one exchange of both)."""
+        if not self.radius:
+            return u, v
+        uv = self.pad(torch.stack((u, v)))
+        return uv[0], uv[1]
+
+
+class LinearSystem(NamedTuple):
+    """One Picard iteration's linear problem A x = b on stacked (2, ny,
+    nx) vectors (this rank's tile on a sharded state)."""
+    matvec: Callable
+    b: torch.Tensor
+    diag: torch.Tensor        # the operator's diagonal (cca), 1 off ice
+
+
+def linear_system(st: Stencil, p: EvpParams, prep: DynPrep, u, v, vrel,
+                  rf) -> LinearSystem:
+    """The operator and right-hand side of the momentum equation linearised
+    about (u, v) (matvec:1535, calc_bvec:1854): the viscosities frozen at
+    (u, v), the water drag `vrel` and the seabed drag linearised there.
+    `rf` is the rheology cutoff at near-massless points."""
+    mask = prep.iceUmask
+    Cb = prep.TbU / (torch.sqrt(u ** 2 + v ** 2) + cst.u0)
+    visc = calc_viscosities(st.grid, p, st.strength, st.DminTarea,
+                            *st.velocities(u, v))
+    sgn = torch.sign(torch.where(prep.fm == 0, 1.0, prep.fm))
+    cca = prep.umassdti + vrel * cst.cosw + Cb
+    ccb = prep.fm + sgn * vrel * cst.sinw
+    cca_safe = torch.where(mask, cca, 1.0)
+
+    def matvec(x):
+        du, dv = x[0], x[1]
+        xp = st.pad(x)
+        sx, sy = vp_stress_divergence(st.grid, p, visc, xp[0], xp[1],
+                                      include_rep=False)
+        sx, sy = st.crop(sx), st.crop(sy)
+        au = cca_safe * du - ccb * dv - rf * sx
+        av = ccb * du + cca_safe * dv - rf * sy
+        return torch.stack((torch.where(mask, au, du),
+                            torch.where(mask, av, dv)))
+
+    rx, ry = rep_pressure_force(st.grid, visc)
+    rx, ry = rf * st.crop(rx), rf * st.crop(ry)
+    bu = prep.forcex + vrel * prep.waterx + \
+        prep.umassdti * prep.uvel_init + rx
+    bv = prep.forcey + vrel * prep.watery + \
+        prep.umassdti * prep.vvel_init + ry
+    b = torch.stack((torch.where(mask, bu, 0.0),
+                     torch.where(mask, bv, 0.0)))
+    return LinearSystem(matvec, b, cca_safe)
+
+
+# ---------------------------------------------------------------------------
 # small least squares on the device
 # ---------------------------------------------------------------------------
 
@@ -120,24 +264,25 @@ def hessenberg_lstsq(H, beta):
     return _masked_triangular_solve(R, A[:m, m], tol)
 
 
-def tall_lstsq(F, f, rcond: float):
+def tall_lstsq(F, f, rcond: float, mesh=None):
     """min |f - F gamma| for a tall F (n x m, m small) by modified
     Gram-Schmidt QR and a masked back substitution (|R_jj| at most
     rcond * max|R| gives gamma_j = 0), in place of
     `jnp.linalg.lstsq(F, f, rcond=rcond)`; zero columns give its
-    minimum-norm gamma. No host read."""
+    minimum-norm gamma. No host read. With `mesh` the rows of F and f are
+    this rank's (grid_sum, grid_norm); gamma is the same on every rank."""
     m = F.shape[1]
     Q = [F[:, j] for j in range(m)]
     R = torch.zeros((m, m), dtype=F.dtype, device=F.device)
     for j in range(m):
         for i in range(j):
-            rij = torch.dot(Q[i], Q[j])
+            rij = grid_sum(torch.dot(Q[i], Q[j]), mesh)
             R[i, j] = rij
             Q[j] = Q[j] - rij * Q[i]
-        rjj = torch.linalg.vector_norm(Q[j])
+        rjj = grid_norm(Q[j], mesh)
         R[j, j] = rjj
         Q[j] = Q[j] / torch.clamp(rjj, min=1e-300)
-    qtf = torch.stack([torch.dot(q, f) for q in Q])
+    qtf = grid_sum(torch.stack([torch.dot(q, f) for q in Q]), mesh)
     return _masked_triangular_solve(R, qtf, rcond * R.abs().amax())
 
 
@@ -146,7 +291,7 @@ def tall_lstsq(F, f, rcond: float):
 # ---------------------------------------------------------------------------
 
 def fgmres(matvec, b, x0, M, dim: int, restarts: int = 1,
-           ortho: str = "mgs", reltol: float = 0.0):
+           ortho: str = "mgs", reltol: float = 0.0, mesh=None):
     """Right-preconditioned flexible GMRES (fgmres:2737) on stacked
     (2, ny, nx) vectors: a fixed Krylov dimension `dim` per cycle and a
     fixed number of restart cycles. A cycle whose entry residual is
@@ -155,7 +300,10 @@ def fgmres(matvec, b, x0, M, dim: int, restarts: int = 1,
     preconditioner M may itself be an iterative solve (the preconditioned
     vectors Z_j are kept). Modified Gram-Schmidt projects against slots
     0..j only, which gives the reference package's numbers (it masks the
-    later, still zero, slots)."""
+    later, still zero, slots). With `mesh` the vectors are this rank's
+    tiles: every inner product and norm is a `grid_sum` (CGS: the j+1
+    products of an Arnoldi step in one), and H, beta and y are the same
+    on every rank."""
     eps = 1e-30
     dtype, dev = b.dtype, b.device
     x = x0
@@ -163,7 +311,7 @@ def fgmres(matvec, b, x0, M, dim: int, restarts: int = 1,
     active = torch.ones((), dtype=torch.bool, device=dev)
     for _ in range(restarts):
         r = b - matvec(x)
-        beta = torch.linalg.vector_norm(r)
+        beta = grid_norm(r, mesh)
         if beta0 is None:
             beta0 = beta
         elif reltol > 0.0:
@@ -176,15 +324,15 @@ def fgmres(matvec, b, x0, M, dim: int, restarts: int = 1,
             z = M(V[j])
             w = matvec(z)
             if ortho == "cgs":
-                hs = torch.tensordot(V[:j + 1], w, dims=3)
+                hs = grid_sum(torch.tensordot(V[:j + 1], w, dims=3), mesh)
                 w = w - torch.tensordot(hs, V[:j + 1], dims=1)
                 H[:j + 1, j] = hs
             else:
                 for i in range(j + 1):
-                    hij = torch.sum(w * V[i])
+                    hij = grid_sum(torch.sum(w * V[i]), mesh)
                     w = w - hij * V[i]
                     H[i, j] = hij
-            hlast = torch.linalg.vector_norm(w)
+            hlast = grid_norm(w, mesh)
             V[j + 1] = w / torch.clamp(hlast, min=eps)
             H[j + 1, j] = hlast
             Z[j] = z
@@ -195,7 +343,7 @@ def fgmres(matvec, b, x0, M, dim: int, restarts: int = 1,
 
 
 def _pgmres_preconditioner(matvec, diag, dim: int, ortho: str,
-                           reltol: float = 0.0):
+                           reltol: float = 0.0, mesh=None):
     """The 'pgmres' preconditioner (pgmres:3139): an inner GMRES of small
     fixed dimension on the same operator, itself diagonally
     preconditioned (reltol = reltol_pgmres)."""
@@ -203,11 +351,11 @@ def _pgmres_preconditioner(matvec, diag, dim: int, ortho: str,
 
     def M(v):
         return fgmres(matvec, v, torch.zeros_like(v), Md, dim=dim,
-                      restarts=1, ortho=ortho, reltol=reltol)
+                      restarts=1, ortho=ortho, reltol=reltol, mesh=mesh)
     return M
 
 
-def _anderson_update(x_hist, f_hist, g_new, x_new, damping):
+def _anderson_update(x_hist, f_hist, g_new, x_new, damping, mesh=None):
     """Anderson(m) mixing (anderson_solver:663): from the histories of
     iterates x_k and residuals f_k = G(x_k) - x_k, the accelerated next
     iterate. The small least squares is `tall_lstsq` (rcond 1e-6)."""
@@ -218,7 +366,7 @@ def _anderson_update(x_hist, f_hist, g_new, x_new, damping):
     dF = [f_hist[i + 1] - f_hist[i] for i in range(m)]
     dX = [x_hist[i + 1] - x_hist[i] for i in range(m)]
     Fm = torch.stack([d.reshape(-1) for d in dF], dim=1)   # (n, m)
-    gamma = tall_lstsq(Fm, fk.reshape(-1), 1e-6)
+    gamma = tall_lstsq(Fm, fk.reshape(-1), 1e-6, mesh)
     # safeguard: shrink aggressive extrapolations
     gnorm = torch.sqrt(torch.sum(gamma ** 2))
     gamma = gamma * torch.clamp(1.5 / torch.clamp(gnorm, min=1e-12),
@@ -237,9 +385,11 @@ def implicit_solver(grid: Grid, cfg_dyn, prep: DynPrep, strength, *,
     (uvel, vvel, stressp, stressm, stress12, strintx, strinty, taubx,
     tauby, residual history): the corner stresses in the EVP layout for
     diagnostics and restarts, and |F(u_k)| per nonlinear iteration as one
-    tensor."""
+    tensor. On a tile grid the inputs and outputs are this rank's tiles
+    and the residuals are the same on every rank."""
     p = evp_params(cfg_dyn, dt)
-    DminTarea = cfg_dyn.deltaminVP * grid.tarea
+    st = Stencil(grid, strength, cfg_dyn.deltaminVP * grid.tarea)
+    mesh = st.mesh
     mask = prep.iceUmask
     u, v = prep.uvel, prep.vvel
     anderson = cfg_dyn.algo_nonlin == "anderson"
@@ -248,7 +398,6 @@ def implicit_solver(grid: Grid, cfg_dyn, prep: DynPrep, strength, *,
     active = None   # 0-d: the nonlinear iteration is above reltol_nonlin
     dim = cfg_dyn.dim_fgmres
     restarts = max(1, cfg_dyn.maxits_fgmres // max(dim, 1))
-    sgn = torch.sign(torch.where(prep.fm == 0, 1.0, prep.fm))
     # rheology cutoff at near-massless fringe points (rheo_area_min): the
     # implicit operator is near-singular there
     rf = (prep.aiU > RHEO_AREA_MIN).to(u.dtype)
@@ -256,55 +405,34 @@ def implicit_solver(grid: Grid, cfg_dyn, prep: DynPrep, strength, *,
     for it in range(cfg_dyn.maxits_nonlin):
         vrel = prep.aiU * cst.rhow * prep.Cw * torch.sqrt((uocn - u) ** 2 +
                                                           (vocn - v) ** 2)
-        Cb = prep.TbU / (torch.sqrt(u ** 2 + v ** 2) + cst.u0)
         if cfg_dyn.use_mean_vrel and not anderson and vrel_prev is not None:
             # average the linearised drag between iterates (use_mean_vrel);
             # not under Anderson, whose mixing needs a stationary map
             vrel = 0.5 * (vrel + vrel_prev)
         vrel_prev = vrel
-        visc = calc_viscosities(grid, p, strength, DminTarea, u, v)
-        cca = prep.umassdti + vrel * cst.cosw + Cb
-        ccb = prep.fm + sgn * vrel * cst.sinw
-        cca_safe = torch.where(mask, cca, 1.0)
-
-        def matvec(x, visc=visc, cca_safe=cca_safe, ccb=ccb):
-            du, dv = x[0], x[1]
-            sx, sy = vp_stress_divergence(grid, p, visc, du, dv,
-                                          include_rep=False)
-            au = cca_safe * du - ccb * dv - rf * sx
-            av = ccb * du + cca_safe * dv - rf * sy
-            return torch.stack((torch.where(mask, au, du),
-                                torch.where(mask, av, dv)))
-
-        rx, ry = rep_pressure_force(grid, visc)
-        rx, ry = rf * rx, rf * ry
-        bu = prep.forcex + vrel * prep.waterx + \
-            prep.umassdti * prep.uvel_init + rx
-        bv = prep.forcey + vrel * prep.watery + \
-            prep.umassdti * prep.vvel_init + ry
-        b = torch.stack((torch.where(mask, bu, 0.0),
-                         torch.where(mask, bv, 0.0)))
+        matvec, b, diag = linear_system(st, p, prep, u, v, vrel, rf)
 
         if cfg_dyn.precond == "pgmres":
             M = _pgmres_preconditioner(
-                matvec, cca_safe,
+                matvec, diag,
                 max(2, min(cfg_dyn.dim_pgmres, cfg_dyn.maxits_pgmres)),
-                cfg_dyn.ortho_type, reltol=cfg_dyn.reltol_pgmres)
+                cfg_dyn.ortho_type, reltol=cfg_dyn.reltol_pgmres, mesh=mesh)
         elif cfg_dyn.precond == "diag":
-            M = lambda x, c=cca_safe: x / c
+            M = lambda x, c=diag: x / c
         else:
             M = lambda x: x
 
         # the nonlinear residual |A(u_k) u_k - b(u_k)| before the solve;
         # iterates freeze once it falls below reltol_nonlin * |F(u_0)|
         x_k = torch.stack((u, v))
-        res = torch.linalg.vector_norm(matvec(x_k) - b)
+        res = grid_norm(matvec(x_k) - b, mesh)
         res_hist.append(res)
         done = res <= cfg_dyn.reltol_nonlin * res_hist[0]
         active = ~done if active is None else (active & ~done)
 
         x = fgmres(matvec, b, x_k, M, dim=dim, restarts=restarts,
-                   ortho=cfg_dyn.ortho_type, reltol=cfg_dyn.reltol_fgmres)
+                   ortho=cfg_dyn.ortho_type, reltol=cfg_dyn.reltol_fgmres,
+                   mesh=mesh)
         keep = mask & active
         g = torch.stack((torch.where(keep, x[0], u),
                          torch.where(keep, x[1], v)))
@@ -316,7 +444,7 @@ def implicit_solver(grid: Grid, cfg_dyn, prep: DynPrep, strength, *,
                 f_hist.pop(0)
                 x_hist.pop(0)
             acc = g if it < cfg_dyn.start_andacc else _anderson_update(
-                x_hist, f_hist, g, x_k, cfg_dyn.damping_andacc)
+                x_hist, f_hist, g, x_k, cfg_dyn.damping_andacc, mesh)
             u = torch.where(mask, acc[0], 0.0)
             v = torch.where(mask, acc[1], 0.0)
             x_hist.append(torch.stack((u, v)))
@@ -324,10 +452,14 @@ def implicit_solver(grid: Grid, cfg_dyn, prep: DynPrep, strength, *,
             u, v = g[0], g[1]
 
     # the final stress state for diagnostics and restarts (EVP layout)
-    visc = calc_viscosities(grid, p, strength, DminTarea, u, v)
-    sp, sm, s12 = _corner_stresses(grid, p, visc, u, v, include_rep=True)
-    strintx, strinty = stress_divergence(grid, *sp, *sm, *s12)
+    up, vp = st.velocities(u, v)
+    visc = calc_viscosities(st.grid, p, st.strength, st.DminTarea, up, vp)
+    sp, sm, s12 = _corner_stresses(st.grid, p, visc, up, vp,
+                                   include_rep=True)
+    strintx, strinty = stress_divergence(st.grid, *sp, *sm, *s12)
+    sp, sm, s12 = (torch.stack([st.crop(x) for x in group])
+                   for group in (sp, sm, s12))
+    strintx, strinty = st.crop(strintx), st.crop(strinty)
     speed = torch.sqrt(u ** 2 + v ** 2) + cst.u0
-    return (u, v, torch.stack(sp), torch.stack(sm), torch.stack(s12),
-            strintx, strinty, -u * prep.TbU / speed, -v * prep.TbU / speed,
-            torch.stack(res_hist))
+    return (u, v, sp, sm, s12, strintx, strinty, -u * prep.TbU / speed,
+            -v * prep.TbU / speed, torch.stack(res_hist))

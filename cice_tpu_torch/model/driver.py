@@ -50,8 +50,7 @@ from ..utils.timers import Timers
 from .flux import zeros_forcing
 from .forcing import default_ocn, get_forcing
 from .state import State, zeros_state
-from .step import (ModelStatic, check_ported, check_sharded, model_step,
-                   step_dyn_transport)
+from .step import ModelStatic, check_ported, model_step, step_dyn_transport
 
 
 def _scalar(v, dtype, device) -> torch.Tensor:
@@ -261,13 +260,11 @@ class Model:
         """Keep only this rank's tile of every (..., ny, nx) array of the
         model (grid, state, forcing, the last fluxes, the prescribed ice,
         the restoring target and zone, the history accumulators) and step
-        those from now on. Raises NotImplementedError for the dynamics
-        `model.step.check_sharded` names."""
+        those from now on."""
         if self.mesh is None:
             raise ValueError("Model.shard needs a mesh (parallel.mesh.Mesh)")
         if self.sharded:
             return self
-        check_sharded(self.cfg)
         mesh, shape = self.mesh, self.grid.global_shape
         cut = lambda tree: mesh.shard_state(tree, shape)
         self.grid = mesh.tile_grid(self.whole_grid)

@@ -15,9 +15,10 @@ rank steps its tiles: every neighbour access goes through the tile-aware
 `core.halo.shift`, every host decision reads a value agreed over the
 ranks (`core.reductions.agreed`, given the tile grid's mesh), the B-grid
 EVP of 'fused_pallas' and 'wide_halo' is the wide-halo solve on the tiles
-(K1 on each padded tile on the card), 'standard_2d' the plain loop, and
-K2/K3 run on padded tiles. `check_sharded` names what does not run
-sharded yet.
+(K1 on each padded tile on the card), 'standard_2d' the plain loop, EAP
+the wide-halo loop of its subcycles (`parallel.evp_wide.eap_solve_wide`),
+VP its solve on the tiles (`dynamics.vp`: the operator on the padded tile,
+the inner products summed over the ranks), and K2/K3 run on padded tiles.
 """
 
 from __future__ import annotations
@@ -133,25 +134,6 @@ def check_ported(cfg) -> None:
                 raise ValueError(
                     f"zbgc.{f.name}={v!r}: the mixed-layer concentrations "
                     "must be numbers; no BGC climatology reader exists")
-
-
-def check_sharded(cfg) -> None:
-    """Raise NotImplementedError for the dynamics that do not run on a
-    sharded state yet: EAP and VP (ROADMAP A8). The B-, C- and CD-grid
-    EVP, every transport and the column physics run."""
-    d = cfg.dynamics
-    what = None
-    if d.kdyn == 2:
-        what = ("EAP (kdyn=2: its yield-table index truncates float ratios, "
-                "and on the CPU float32 atan2 rounds by where a cell falls "
-                "in the vector loop, so tiles leave the whole grid)")
-    elif d.kdyn == 3:
-        what = "VP (kdyn=3: its Krylov inner products sum the grid)"
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} on a state sharded across ranks: not ported yet "
-            "(ROADMAP A8: the whole step across ranks); a whole state on "
-            "every rank runs it")
 
 
 @dataclass(frozen=True)
@@ -688,8 +670,6 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     d = cfg.dynamics
     p = evp_params(d, dt)
     tiled = isinstance(grid.bc, TileBC)
-    if tiled:
-        check_sharded(cfg)
     strength = ice_strength(state.aicen, state.vicen, state.aice, state.vice,
                             d)
     if cfg.grid.grid_ice in ("C", "CD"):
@@ -705,10 +685,14 @@ def step_dyn_horiz(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
             implicit_solver(grid, d, prep, strength, uocn=uocnU,
                             vocn=vocnU, dt=dt)
     elif d.kdyn == 2:
+        solve, kw = eap_solve, {}
+        if tiled:
+            from ..parallel.evp_wide import eap_solve_wide
+            solve, kw = eap_solve_wide, dict(k_fuse=d.evp_wide_k)
         (u, v, sp, sm, s12, strintx, strinty, taubx, tauby, a11, a12,
-         extra_diags) = eap_solve(grid, p, prep, strength, state.stressp,
-                                  state.stressm, state.stress12, uocn=uocnU,
-                                  vocn=vocnU, a11=state.a11, a12=state.a12)
+         extra_diags) = solve(grid, p, prep, strength, state.stressp,
+                              state.stressm, state.stress12, uocn=uocnU,
+                              vocn=vocnU, a11=state.a11, a12=state.a12, **kw)
         state = state.replace(a11=a11, a12=a12)
     else:
         kw = {}

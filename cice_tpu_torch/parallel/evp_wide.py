@@ -34,6 +34,10 @@ raises there, as K1 does); on CPU tensors the plain `stress_update` +
 (no kernel computes the C-grid EVP). The interiors are gathered on every
 rank, and the final force diagnostics run on the whole grid, as the
 one-program solve's tail (on the tile, for a sharded state).
+
+EAP on a sharded state (`eap_solve_wide`) runs the same way: its plain
+`_subcycle` on each rank's padded tile, k per exchange, the padded state
+carrying the structure tensor (a11, a12) beside u, v and the stresses.
 """
 
 from __future__ import annotations
@@ -190,7 +194,9 @@ def padded_tiles(bc: TileBC, R: int, *tiles):
     """Each (..., ly, lx) tile widened by R rings of the global arrays'
     values around it, (..., ly+2R, lx+2R): zero past a non-cyclic global
     edge, the wrap across a cyclic one. One exchange of all of them
-    stacked (no tripole fold: the callers refuse that grid)."""
+    stacked. No tripole fold: on a tripole grid the VP operator, its one
+    caller there, reads through the tile-aware shift instead
+    (`dynamics.vp.Stencil`)."""
     flat = [t.reshape((-1,) + tuple(t.shape[-2:])) for t in tiles]
     z = F.pad(torch.cat(flat), (R, R, R, R))
     halo_exchange(bc.mesh, z, R, y_cyclic=bc.y_cyclic, x_cyclic=bc.x_cyclic)
@@ -202,13 +208,16 @@ def padded_tiles(bc: TileBC, R: int, *tiles):
     return out
 
 
-def _b_fold_metas(ns_kind: str):
-    """FoldMeta pairs (const, state) for the B-grid packed stacks.
+def _b_fold_metas(ns_kind: str, n_tensors: int = 3):
+    """FoldMeta pairs (const, state) for the B-grid packed stacks; the
+    state is u, v and `n_tensors` corner-indexed tensor components of 4
+    planes each (the stresses; EAP's a11, a12 besides).
 
     T-centred scalars fold with the centre pivot, U-corner quantities with
     the corner pivot; U vectors flip sign; the one-sided metric
-    combinations swap signed partners; corner-indexed stress planes swap
-    diagonal corners (NE<->SW, NW<->SE) with invariant values."""
+    combinations swap signed partners; corner-indexed planes of rank-2
+    tensors (stresses, the structure tensor) swap diagonal corners
+    (NE<->SW, NW<->SE) with invariant values."""
     tfold = ns_kind == "tripoleT"
     pc = 0 if tfold else -1       # centre pivot: i -> (nx+pc - i) mod nx
     pu = -1 if tfold else -2      # corner pivot
@@ -239,10 +248,10 @@ def _b_fold_metas(ns_kind: str):
 
     # state: u, v, sp1..4, sm1..4, s121..4 (corner order NE, NW, SW, SE)
     swap = {0: 2, 1: 3, 2: 0, 3: 1}   # NE<->SW, NW<->SE
-    s_partner = [0, 1] + [2 + swap[i] for i in range(4)] + \
-        [6 + swap[i] for i in range(4)] + [10 + swap[i] for i in range(4)]
-    s_sign = [-1, -1] + [1] * 12
-    s_corner = [1, 1] + [0] * 12
+    s_partner = [0, 1] + [2 + 4 * t + swap[i] for t in range(n_tensors)
+                          for i in range(4)]
+    s_sign = [-1, -1] + [1] * (4 * n_tensors)
+    s_corner = [1, 1] + [0] * (4 * n_tensors)
     smeta = FoldMeta(s_partner, s_sign, [pu if c else pc for c in s_corner],
                      [rc if c else rt for c in s_corner])
     return cmeta, smeta
@@ -338,6 +347,52 @@ def evp_solve_wide(grid, p: EvpParams, prep: DynPrep, strength, stressp,
     strintx, strinty, taubx, tauby = evp_tail(grid, p, prep, strength,
                                               DminTarea, u, v, sp, sm, s12)
     return u, v, sp, sm, s12, strintx, strinty, taubx, tauby
+
+
+def eap_solve_wide(grid, p: EvpParams, prep: DynPrep, strength, stressp,
+                   stressm, stress12, *, uocn, vocn, a11, a12,
+                   k_fuse: int = 8):
+    """`dynamics.eap.eap_solve` on a state sharded across ranks (a tile
+    grid): the inputs and outputs are this rank's tiles. k_fuse subcycles
+    of the plain `_subcycle` run on the tile padded by k rings between
+    halo exchanges, as `evp_solve_wide`; the yield tables are replicated.
+    The interiors are the one-process solve's: the same operations on the
+    same values. The force and yield-stress diagnostics then run on the
+    tile (`eap_finish`, through the tile-aware shift)."""
+    from ..dynamics.eap import (EapState, _device_tables, _subcycle,
+                                eap_finish)
+    mesh = grid.bc.mesh
+    ly, lx, k, H = _tile_geometry(mesh, grid.global_shape, 1, k_fuse,
+                                  p.ndte)
+    dtype = prep.uvel.dtype
+    m3 = prep.iceTmask[None]
+    const = _pack_const(grid, prep, strength, p.deltaminEVP * grid.tarea,
+                        uocn, vocn, dtype)
+    state = torch.cat([prep.uvel[None], prep.vvel[None],
+                       torch.where(m3, stressp, 0.0),
+                       torch.where(m3, stressm, 0.0),
+                       torch.where(m3, stress12, 0.0), a11, a12]).to(dtype)
+    cmeta = smeta = None
+    if grid.bc.tripole:
+        cmeta, smeta = _b_fold_metas(grid.bc.ns, n_tensors=5)
+    exch = dict(H=H, y_cyclic=grid.bc.y_cyclic, x_cyclic=grid.bc.x_cyclic,
+                ly=ly)
+    c = halo_exchange(mesh, _padded_tile(mesh, const, H, True),
+                      fold_meta=cmeta, **exch)
+    g, prep_l, strength_l, _, uocn_l, vocn_l = _unpack_const(c)
+    tabs = _device_tables(c.device)
+    unpack = lambda z: EapState(z[0], z[1], *(z[2 + 4 * t:6 + 4 * t]
+                                               for t in range(5)))
+    s = _padded_tile(mesh, state, H, True)
+    for nsub in _chunks(p.ndte, k):
+        st = unpack(halo_exchange(mesh, s, fold_meta=smeta, **exch))
+        for _ in range(nsub):
+            st = _subcycle(g, p, prep_l, strength_l, tabs, uocn_l, vocn_l,
+                           st)
+        s = torch.cat([st.uvel[None], st.vvel[None], st.stressp,
+                       st.stressm, st.stress12, st.a11, st.a12])
+    return eap_finish(grid, p, prep, strength, tabs,
+                      unpack(s[:, H:H + ly, H:H + lx]))
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,10 @@ partner (the tripole fold's), and moves data between them:
 
 - `exchange(sends, recvs)`: point-to-point messages, one
   `batch_isend_irecv`; a message a rank sends itself is a copy;
-- `all_gather_tiles`, `all_reduce`, `all_gather`, `barrier`: the
-  collectives of the wide-halo EVP and of `core.reductions`.
+- `all_gather_tiles`, `all_reduce`, `all_gather`, `all_sum`, `barrier`:
+  the collectives of the wide-halo EVP, of `core.reductions` and of the
+  VP solver's inner products (`all_sum` adds the ranks' parts in rank
+  order, so every rank reads the same bits).
 
 gloo moves CPU tensors only, so under gloo every CUDA tensor is copied to
 the host on its way out and back on its way in (the exchange's through
@@ -24,7 +26,8 @@ tensors directly. The counters, split so that they add up:
 - `wait_seconds`: before staging, the wait for the card's queued work
   (on the wide EVP, the K1 launches since the last message);
 - `wire_seconds`: the host's time in the process group's calls, the
-  wait for the peers included.
+  wait for the peers included;
+- `exchanges`, `collectives`: the calls of each kind made.
 
 With no process group a Mesh is a 1x1 grid of the one process.
 
@@ -103,6 +106,7 @@ class Mesh:
             raise ValueError(f"rank {self.rank} is not in the mesh's group")
         self.coords = (int(where[0][0]), int(where[0][1]))
         self.exchanges = 0
+        self.collectives = 0
         self.staged_bytes = 0
         self.staged_seconds = 0.0
         self.wait_seconds = 0.0
@@ -250,6 +254,7 @@ class Mesh:
         return out
 
     def _wire(self, call, *args, **kw) -> None:
+        self.collectives += 1
         t0 = time.perf_counter()
         call(*args, group=self.group, **kw)
         self.wire_seconds += time.perf_counter() - t0
@@ -271,6 +276,21 @@ class Mesh:
         parts = [torch.empty_like(wire) for _ in range(self.size)]
         self._wire(dist.all_gather, parts, wire)
         return self._in(torch.stack(parts), t.device)
+
+    def all_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of `t` over the mesh's ranks as parts[0] + parts[1] +
+        ... in group order, whatever order the process group adds in, so
+        every rank reads the same bits; a new tensor on `t`'s device. Under
+        gloo the parts are added on the host, where they arrive."""
+        if self.size == 1:
+            return t.clone()
+        wire = self._out(t)
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        self._wire(dist.all_gather, parts, wire)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return self._in(total, t.device)
 
     def all_gather_tiles(self, tile: torch.Tensor, ny: int,
                          nx: int) -> torch.Tensor:
@@ -296,6 +316,7 @@ class Mesh:
 
     def barrier(self) -> None:
         if self.size > 1:
+            self.collectives += 1
             dist.barrier(group=self.group)
 
     # -- sharded state ------------------------------------------------------

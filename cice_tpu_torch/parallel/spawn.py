@@ -23,7 +23,7 @@ files that `save` writes and `load` reads (pickles this package writes
 itself). The ranks may share one CUDA device: each job names its
 `device`.
 
-`JOBS` holds what `chip_smoke.py` phases 14 and 15 and the CLI's `test
+`JOBS` holds what `chip_smoke.py` phases 14-16 and the CLI's `test
 --type decomp` and `perf --mesh` run across ranks: the wide-halo EVP on the
 B and C grids, whole model steps (the state whole on every rank, or
 sharded), EVP solves on a sharded state, and global sums.
@@ -215,7 +215,7 @@ def _counters(mesh) -> dict:
     from ..kernels import remap as kremap
     return dict(k1_launches=kevp.launches, k2_launches=kremap.launches,
                 k3_launches=kremap.flux_launches, exchanges=mesh.exchanges,
-                staged_bytes=mesh.staged_bytes,
+                collectives=mesh.collectives, staged_bytes=mesh.staged_bytes,
                 staged_seconds=mesh.staged_seconds,
                 wait_seconds=mesh.wait_seconds,
                 wire_seconds=mesh.wire_seconds)
@@ -225,11 +225,10 @@ def _job_sharded_steps(*, group, cfg, nsteps, shape, device="cpu",
                        write_restart=False, history=False):
     """`nsteps` Model steps with the state sharded on a `shape` mesh (a
     dump at the end with `write_restart`, history with `history`); the
-    whole state's leaves,
-    gathered, and per rank the kernels' launches, the messages, the bytes
-    staged and the seconds of the steps (host clock after a synchronise)
-    with their split into staging copies, waits for the card and gloo
-    calls, as totals over the steps."""
+    whole state's leaves, gathered, and per rank the kernels' launches, the
+    messages, the collectives, the bytes staged and the seconds of the
+    steps (host clock after a synchronise) with their split into staging
+    copies, waits for the card and gloo calls, as totals over the steps."""
     from ..model.driver import Model
     from ..model.state import state_leaves
     from .mesh import Mesh

@@ -18,6 +18,13 @@ with
   gx1pop_step(48, 40) through K1 + K3 and (remap_kernel='auto') K1 + K2
   equal two steps of one process bit for bit, with K1 and K3 (or K2)
   launched on every rank's tile.
+- EAP (kdyn=2) sharded on 1x2 ranks: two steps through K2 equal two steps
+  of one process bit for bit (on the card every element of `atan2` takes
+  the same path), K2 once per step on each rank.
+- The VP operator on each rank's padded tile equals the whole-grid
+  operator bit for bit on the card (f32), and one dynpicard step (VP
+  counts cut) on 1x2 ranks launches K2 once on each rank and stays within
+  the decomp oracle of one process.
 """
 
 import os
@@ -153,3 +160,70 @@ def test_sharded_steps_launch_on_every_tile(cuda, kernel, tmp_path):
             st = x["stats"]
             assert st["k1_launches"] >= 2 and st[flux] >= 2, st
             assert st["staged_bytes"] > 0 and st["exchanges"] > 0
+
+
+def _eap_vp_cfg(kdyn):
+    from cice_tpu_torch.config import gx1pop_step
+    over = {"dynamics.kdyn": kdyn}
+    if kdyn == 3:
+        over.update({"dynamics.maxits_nonlin": 3, "dynamics.dim_fgmres": 10,
+                     "dynamics.maxits_fgmres": 10, "dynamics.dim_pgmres": 3,
+                     "dynamics.maxits_pgmres": 3})
+    return gx1pop_step(48, 40, remap_kernel="auto").with_overrides(**over)
+
+
+def _one_process(cfg, nsteps):
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.state import state_leaves
+    one = Model(cfg, device="cuda")
+    for _ in range(nsteps):
+        one.step()
+    return [x.cpu().numpy() for x in state_leaves(one.state)]
+
+
+def test_sharded_eap_steps_equal_one_process_on_the_card(cuda, tmp_path):
+    cfg = _eap_vp_cfg(2)
+    ref = _one_process(cfg, 2)
+    (r,) = spawn.launch([("sharded_steps", dict(cfg=cfg, nsteps=2,
+                                                shape=(1, 2),
+                                                device="cuda"), 2)], 2,
+                        str(tmp_path), timeout=600.0)
+    assert len({x["digest"] for x in r}) == 1
+    for a, b in zip(r[0]["out"], ref):
+        np.testing.assert_array_equal(a, b)
+    assert [x["stats"]["k2_launches"] for x in r] == [2, 2]
+
+
+def test_padded_vp_operator_equals_the_whole_grid_on_the_card(cuda,
+                                                              tmp_path):
+    import test_torch_rank_jobs as rj
+    problem = rj.vp_problem(_eap_vp_cfg(3), str(tmp_path / "vp.pkl"),
+                            device="cuda")
+    ref = rj.vp_operator_whole(problem, "cuda")
+    (r,) = spawn.launch([(rj.vp_operator, dict(problem=problem, shape=(1, 2),
+                                               device="cuda"), 2)], 2,
+                        str(tmp_path), timeout=600.0)
+    assert len({x["digest"] for x in r}) == 1
+    for a, b in zip(r[0]["out"][:3], ref[:3]):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    assert float(np.abs(ref[0]).max()) > 0
+
+
+def test_sharded_vp_step_launches_k2_on_every_tile(cuda, tmp_path):
+    cfg = _eap_vp_cfg(3)
+    ref = _one_process(cfg, 1)
+    (r,) = spawn.launch([("sharded_steps", dict(cfg=cfg, nsteps=1,
+                                                shape=(1, 2),
+                                                device="cuda"), 2)], 2,
+                        str(tmp_path), timeout=600.0)
+    assert len({x["digest"] for x in r}) == 1
+    assert [x["stats"]["k2_launches"] for x in r] == [1, 1]
+    assert all(x["stats"]["collectives"] > 0 for x in r)
+    for a, b in zip(r[0]["out"], ref):
+        if b.dtype.kind != "f":
+            np.testing.assert_array_equal(a, b)
+        elif b.size:
+            assert np.isfinite(a).all()
+            scale = float(np.abs(b).max())
+            assert float(np.abs(a - b).max()) <= 1e-4 * max(scale, 1e-6)

@@ -1,7 +1,7 @@
 """Rank jobs that only the tests run across spawned gloo ranks
 (`cice_tpu_torch.parallel.spawn.launch`): mesh layouts, sharded I/O, the
-tile-aware halo functions and a rank that leaves out a shift, and the
-launcher's own tests.
+tile-aware halo functions and a rank that leaves out a shift, the VP
+operator on a padded tile, and the launcher's own tests.
 
 The ranks import this module to find the jobs, so it imports pytest,
 torch and the port only, never JAX (test_torch_evp_wide.py and
@@ -168,6 +168,113 @@ def gather_unequal(*, group, shape, grid_shape):
     back = mesh.gather_state(tiles, grid_shape)
     return dict(tile=tuple(tiles["x"].shape), equal=torch.equal(back["x"], x),
                 scalar=float(back["s"]))
+
+
+def vp_problem(cfg, path, device="cpu", seed=0):
+    """One Picard iteration's VP problem on `cfg`'s grid after one step of
+    the model (the ice in motion), written to `path`: the B-grid EVP
+    problem (`spawn.b_problem_to_numpy`) with a random iterate x and water
+    drag vrel made from `seed`, and deltaminVP."""
+    import numpy as np
+    from cice_tpu_torch.columns.ridging import ice_strength
+    from cice_tpu_torch.dynamics.common import evp_params
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.step import b_grid_prep
+    m = Model(cfg, device=device)
+    m.step()
+    st, fc, dt = m.state, m.forcing, cfg.setup.dt
+    prep, uocn, vocn = b_grid_prep(cfg, m.grid, st, fc, fc.strax, fc.stray,
+                                   dt)
+    strength = ice_strength(st.aicen, st.vicen, st.aice, st.vice,
+                            cfg.dynamics)
+    d = spawn.b_problem_to_numpy(m.grid, evp_params(cfg.dynamics, dt), prep,
+                                 strength, st.stressp, st.stressm,
+                                 st.stress12, uocn, vocn)
+    rng = np.random.default_rng(seed)
+    dtype = d["strength"].dtype
+    d.update(x=rng.standard_normal((2,) + m.grid.shape).astype(dtype),
+             vrel=(5.0 * rng.random(m.grid.shape)).astype(dtype),
+             deltaminVP=cfg.dynamics.deltaminVP)
+    return spawn.save(d, path)
+
+
+def _vp_system(problem, device, mesh=None):
+    """(grid, the system's outputs) of `vp_operator` on the whole grid, or
+    on this rank's tile with `mesh`."""
+    from cice_tpu_torch.dynamics import vp
+    from cice_tpu_torch.dynamics.common import RHEO_AREA_MIN
+    d = load(problem)
+    (grid, p, prep, strength, *_), _ = spawn.b_problem_from_numpy(d, device)
+    x = torch.as_tensor(d["x"], device=device)
+    vrel = torch.as_tensor(d["vrel"], device=device)
+    if mesh is not None:
+        shp = grid.shape
+        grid = mesh.tile_grid(grid)
+        prep, strength, x, vrel = mesh.shard_state((prep, strength, x, vrel),
+                                                   shp)
+    st = vp.Stencil(grid, strength, d["deltaminVP"] * grid.tarea)
+    rf = (prep.aiU > RHEO_AREA_MIN).to(x.dtype)
+    sys_ = vp.linear_system(st, p, prep, prep.uvel, prep.vvel, vrel, rf)
+    y = sys_.matvec(x)
+    local = torch.sum(x * y)
+    return st, [y, sys_.b, sys_.diag, vp.grid_sum(local, st.mesh),
+                vp.grid_norm(y, st.mesh), local]
+
+
+def vp_operator_whole(problem, device="cpu"):
+    """[A x, b, diag, x . A x, |A x|, x . A x] on the whole grid."""
+    return [t.cpu().numpy() for t in _vp_system(problem, device)[1]]
+
+
+def vp_operator(*, group, problem, shape, device="cpu"):
+    """One Picard iteration's VP system (`dynamics.vp.linear_system`) on
+    this rank's tile of `problem` (vp_problem): A x, b and the diagonal
+    gathered whole, the grid sums x . A x and |A x| (`grid_sum`,
+    `grid_norm`), and every rank's partial of x . A x; the stencil's
+    radius, the messages and the collectives as stats."""
+    mesh = Mesh(shape, group=group)
+    st, (y, b, diag, dot, norm, local) = _vp_system(problem, device, mesh)
+    e0, c0 = mesh.exchanges, mesh.collectives
+    ny, nx = st.bc.ny, st.bc.nx
+    outs = [mesh.all_gather_tiles(t, ny, nx) for t in (y, b, diag)]
+    outs += [dot, norm, mesh.all_gather(local)]
+    return rank_result(mesh, outs, dict(radius=st.radius,
+                                        exchanges=e0, collectives=c0,
+                                        tile=tuple(y.shape[-2:])))
+
+
+def vp_host_reads(*, group, cfg, shape):
+    """implicit_solver on this rank's tiles of one Picard problem of
+    `cfg`, with every Tensor.item, bool, float, int, tolist and numpy call
+    counted; (the calls, the solve's u finite on the tile)."""
+    from cice_tpu_torch.columns.ridging import ice_strength
+    from cice_tpu_torch.dynamics import vp
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model.step import b_grid_prep
+    m = Model(cfg, device="cpu", mesh=Mesh(shape, group=group), shard=True)
+    st, fc, dt = m.state, m.forcing, cfg.setup.dt
+    prep, uocn, vocn = b_grid_prep(cfg, m.grid, st, fc, fc.strax + 0.1,
+                                   fc.stray + 0.05, dt)
+    strength = ice_strength(st.aicen, st.vicen, st.aice, st.vice,
+                            cfg.dynamics)
+    reads = []
+    saved = {}
+    for name in ("item", "__bool__", "__float__", "__int__", "tolist",
+                 "numpy"):
+        orig = saved[name] = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _orig=orig, _name=name, **k):
+            reads.append(_name)
+            return _orig(self, *a, **k)
+        setattr(torch.Tensor, name, spy)
+    try:
+        out = vp.implicit_solver(m.grid, cfg.dynamics, prep, strength,
+                                 uocn=uocn, vocn=vocn, dt=dt)
+    finally:
+        for name, orig in saved.items():
+            setattr(torch.Tensor, name, orig)
+    return reads, bool(torch.isfinite(out[0]).all()), \
+        float(out[0].abs().max())
 
 
 # ---------------------------------------------------------------------------

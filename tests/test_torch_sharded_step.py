@@ -22,8 +22,9 @@ sharded steps within tests/test_torch_step.py's tolerances: one JAX
 compile. The port's one-process steps, which its sharded steps equal bit
 for bit, are held to the JAX package's one-device `model_step` there.
 
-The ranks are spawned processes, one launch for the file. What does not
-run sharded yet (EAP, VP) refuses, naming ROADMAP A8.
+The ranks are spawned processes, one launch for the file. EAP and VP on
+a sharded state are held in tests/test_torch_sharded_eap.py and
+tests/test_torch_sharded_vp.py.
 """
 
 import dataclasses
@@ -72,7 +73,7 @@ OTHERS = {"gridc": {"grid.grid_ice": "C"},
           "remap_q": {"dynamics.advection": "remap_q"}}
 #: option sets of the CLI's table, f64 (on the CPU float32 log and exp
 #: may round the tail of a vector loop otherwise than its body, which
-#: fdrag with fsd12 shows after 2 steps: see check_sharded's EAP note)
+#: fdrag with fsd12 shows after 2 steps; so does atan2, which EAP reads)
 SETS = {"columns": "mushy,dedd,snwgrain,fsd12,fdrag,pondtopo",
         "bgc": "bgcskl", "bdyrestore": "bdyrestore",
         "prescribed": "prescribed"}
@@ -235,18 +236,6 @@ def test_sharded_steps_match_jax_on_eight_devices(runs, devices8):
              "float64")
     _equal([x.numpy() for x in state_leaves(got)],
            _leaves(runs["one"]["jax_f64"]))
-
-
-@pytest.mark.parametrize("over", [{"dynamics.kdyn": 2},
-                                  {"dynamics.kdyn": 3}],
-                         ids=["eap", "vp"])
-def test_what_is_not_ported_sharded_refuses_naming_a8(over):
-    cfg = Config().with_overrides(**{"grid.nx_global": 12,
-                                     "grid.ny_global": 10, **over})
-    m = Model(cfg, device="cpu", mesh=Mesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        m.shard()
-    assert not m.sharded
 
 
 def test_sharding_needs_a_mesh():
