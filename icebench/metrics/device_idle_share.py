@@ -1,0 +1,9 @@
+"""The share of the traced window in which nothing ran on the device, in
+%: 1 - (the union of kernel, copy and memset intervals) / (the window)."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
