@@ -31,7 +31,9 @@ EVP on a sharded state over that many spawned ranks.
 
 `run --profile DIR` traces the time loop with torch.profiler (CPU, and
 CUDA where the model runs on the card) and writes a Chrome trace into
-DIR.
+DIR, with the program's own ranges (utils/timers.py: the Timers, the
+phases "ice:<phase>", the blocking reads "sync:<site>"). `run` prints
+the process's blocking reads by site under "syncs".
 
 `test --type baseline` runs the full length of an option set (gx3pop,
 gx1pop, tx1pop) with history, archives {"final", "series", "timers"} as
@@ -462,6 +464,7 @@ def cmd_case(args):
 
 def cmd_run(args):
     from ..model.driver import Model
+    from ..utils.timers import sync_counts
     m = Model(build_config(args), device=args.device,
               enable_history=args.history)
     n = args.steps if args.steps else None
@@ -482,6 +485,7 @@ def cmd_run(args):
     wall = time.time() - t0
     print(json.dumps({"istep": m.calendar.istep, "wall_s": round(wall, 2),
                       "timers": {k: round(v, 2) for k, v in m.timers.items()},
+                      "syncs": sync_counts(),
                       "diags": _diags(m)}))
     return 0
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
-from ..core.reductions import agreed
+from ..core.reductions import host_read
 from ..ops import clip, lmean, lsum
 
 
@@ -343,7 +343,7 @@ def rebin(aicen, vicen, vsnon, trcrn, hin_max, registry, mesh=None):
         tracer merge runs only when some parcel moves anywhere (one host
         read): after the linear ITD remap that is rare, and an idle merge
         would still rewrite every cell as t*w/w, not bit-for-bit t."""
-        if bool(agreed(moving.any(), mesh)):
+        if host_read("rebin", moving.any(), mesh):
             wsrc = _dep_weight(didx, a[frm], v[frm], s[frm])
             wdst = _dep_weight(didx, a[to], v[to], s[to])
             wsm = torch.where(moving[None], wsrc, 0.0)

@@ -18,7 +18,7 @@ import torch
 
 from .. import constants as cst
 from ..ops import lsum
-from ..core.reductions import agreed
+from ..core.reductions import host_read
 from .itd import (cleanup_itd, dep_index, name_offsets, pack_tracers, rebin,
                   unpack_tracers)
 
@@ -169,7 +169,8 @@ def ridge_ice(cfg, aicen, vicen, vsnon, trcrn, *, divu, Delta, dt, hin_max,
     closing_rem = closing_net * dt         # total fractional area to close
     npass = 0
     while npass < 1 or (npass < NITER_RDG
-                        and bool(agreed(closing_rem.max(), mesh) > 1e-9)):
+                        and host_read("ridge", closing_rem.max() > 1e-9,
+                                      mesh)):
         aice = lsum(aicen, dim=0)
         aice0 = torch.clamp(1.0 - aice, 0.0, 1.0)
         rp = ridge_prep(aicen, vicen, aice0, d.mu_rdg)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
-from ..core.reductions import agreed
+from ..core.reductions import host_read
 from ..ops import clip
 
 TSF_ERRMAX = 5.0e-4   # Picard exit: largest temperature change anywhere (K)
@@ -266,7 +266,7 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
             + [(a - b).abs().max() for a, b in zip(Tsn_n, Tsn)]
             + [(a - b).abs().max() for a, b in zip(Tin_n, Tin)]).max()
         Tsf, Tsn, Tin = Tsf_n, Tsn_n, Tin_n
-        if not bool(agreed(err, mesh) > TSF_ERRMAX):
+        if not host_read("picard", err > TSF_ERRMAX, mesh):
             break
 
     fsurf, dfsurf, fsens, flat, flwout = surface_fluxes(

@@ -30,12 +30,16 @@ A step on a sharded state makes host decisions on data (a Picard exit, a
 ridging pass, a category move): every rank must take the same branch, or
 the shifts of a branch one rank skips leave its peers waiting.
 `agreed(x, mesh)` is `x` reduced over the mesh's ranks, read the same on
-each.
+each. `host_read` is the one way a step reads the device on the host: it
+agrees the value, converts it, counts the read by site and, while a
+profiler runs, spans the wait (utils/timers.py).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils.timers import count_sync, span
 
 BFBFLAGS = ("off", "lsum4", "lsum8", "lsum16", "ddpdd", "reprosum")
 
@@ -148,3 +152,26 @@ def agreed(x: torch.Tensor, mesh=None, op: str = "max") -> torch.Tensor:
     if x.dtype == torch.bool:
         return mesh.all_reduce(x.to(torch.uint8), "max").bool()
     return mesh.all_reduce(x, op)
+
+
+def host_read(site: str, x, mesh=None, op: str = "max"):
+    """The Python value (`.item()`, or `.tolist()` for more than one
+    element) of `agreed(x, mesh, op)`: a blocking read of the device,
+    counted at `site` and spanned "sync:<site>" while a profiler runs. A
+    value that is not a tensor is returned as it is, uncounted."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    x = agreed(x, mesh, op)
+    count_sync(site)
+    with span("sync:" + site):
+        return x.item() if x.dim() == 0 else x.tolist()
+
+
+def host_wait(site: str, device: torch.device) -> None:
+    """Wait for everything queued on a CUDA `device`, counted and spanned
+    at `site` as `host_read` does; nothing on another device."""
+    if device.type != "cuda":
+        return
+    count_sync(site)
+    with span("sync:" + site):
+        torch.cuda.synchronize(device)

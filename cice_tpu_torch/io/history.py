@@ -33,6 +33,7 @@ import torch
 
 from .. import constants as cst
 from ..core.halo import tile_mesh
+from ..utils.timers import span
 from .async_writer import SnapshotBytesIO, write_bytes
 from .history_fields import HistoryField, build_fields, nrows
 
@@ -178,13 +179,23 @@ class History:
         return data
 
     def write_stream(self, st: Stream, calendar, fmt: str = "cdf1") -> str:
+        with span("ice:history_encode"):
+            path, payload = self._encode(st, calendar, fmt)
+        if payload is not None:
+            with span("ice:history_file"):
+                write_bytes(path, payload, self.writer)
+        return path
+
+    def _encode(self, st: Stream, calendar, fmt: str):
+        """(path, the file's bytes) of the stream; no bytes on a rank that
+        does not write."""
         data = self.stream_data(st)
         base = f"{self.cfg.setup.history_file}.{st.freq}.{calendar.timestamp()}"
         if self.mesh is not None and self.mesh.rank != \
                 self.mesh.group_ranks[0]:
             # the mesh's first rank writes the gathered stream
             return os.path.join(self.dir, base + (".npz" if fmt == "npz"
-                                                  else ".nc"))
+                                                  else ".nc")), None
         os.makedirs(self.dir, exist_ok=True)
         mask = _np(self.out_grid.hm) > 0.5
         buf = SnapshotBytesIO()
@@ -207,8 +218,7 @@ class History:
             payload = buf.value       # netcdf_file closed the buffer
         else:
             raise ValueError(f"unknown history format {fmt!r}")
-        write_bytes(path, payload, self.writer)
-        return path
+        return path, payload
 
     def _field_arrays(self, data, st) -> dict:
         """{field name: its rows of `data` shaped (*dim sizes, ny, nx)}."""

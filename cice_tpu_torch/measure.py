@@ -162,7 +162,8 @@ def count_host_reads(fn) -> int:
     `.tolist()`) `fn()` makes: on the card each one waits for the device.
     The global exit tests of the coupled step make one per Picard pass, per
     ridging pass and per `rebin` category move; the point probes one per
-    call."""
+    call. Counted from outside the program, which counts its own by site
+    (`core.reductions.host_read`, `utils.timers.sync_counts`)."""
     names = ("__bool__", "__float__", "__int__", "item", "tolist")
     saved = {nm: getattr(torch.Tensor, nm) for nm in names}
     count = [0]

@@ -24,7 +24,7 @@ from ..ops import lmean, lsum
 from ..columns.ponds import pond_reservoir_mass
 from ..core.grid import Grid
 from ..core.halo import tile_mesh
-from ..core.reductions import global_maxval, global_sum
+from ..core.reductions import global_maxval, global_sum, host_read
 from .state import State
 
 
@@ -281,7 +281,7 @@ def print_points_state(grid: Grid, state: State, latpnt=(90.0, -65.0),
                         state.uvel[jj, ii], state.vvel[jj, ii],
                         state.sst[jj, ii],
                         tsum / torch.clamp(aice, min=1e-11)])
-    rows = vals.to(torch.float64).T.tolist()
+    rows = host_read("probe", vals.to(torch.float64).T)
     return [dict(p, **dict(zip(POINT_KEYS, r))) for p, r in zip(pts, rows)]
 
 
@@ -295,8 +295,8 @@ def debug_ice(grid: Grid, state: State, j: int, i: int,
             "vsnon": state.vsnon[:, j, i], "uvel": state.uvel[j, i],
             "vvel": state.vvel[j, i]}
     cols.update({name: arr[..., j, i] for name, arr in state.trcrn.items()})
-    flat = torch.cat([c.reshape(-1).to(torch.float64)
-                      for c in cols.values()]).tolist()
+    flat = host_read("probe", torch.cat([c.reshape(-1).to(torch.float64)
+                                         for c in cols.values()]))
     out = {"stage": stage, "j": j, "i": i}
     k = 0
     for name, c in cols.items():

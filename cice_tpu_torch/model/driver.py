@@ -46,7 +46,8 @@ from ..columns.thermo_vertical import (bl99_salinity, enthalpy_ice,
                                        enthalpy_snow, melting_temps)
 from ..core.grid import Grid, make_grid
 from ..core.halo import TileBC, tile_mesh
-from ..utils.timers import Timers
+from ..core.reductions import host_read, host_wait
+from ..utils.timers import Timers, span
 from .flux import zeros_forcing
 from .forcing import default_ocn, get_forcing
 from .state import State, zeros_state
@@ -354,8 +355,7 @@ class Model:
             if cfg.forcing.restore_ocn:
                 from .restoring import restore_sst
                 self.state = restore_sst(cfg, self.state, fc.sst_data, dt)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            host_wait("step_end", self.device)
         self.tchecks = self.flux.transport_checks
         prev_year = self.calendar.year
         self.calendar = self.calendar.advance(dt)
@@ -366,23 +366,28 @@ class Model:
             self.state = self.state.replace(mlt_onset=z, frz_onset=z)
 
         # analysis / IO phases (reference ice_step tail, CICE_RunMod:375-420)
-        self.timers.start("History")
-        if self.history is not None:
-            self.history.accum(self.state, self.flux, self.forcing)
-            self.history.maybe_write(self.calendar,
-                                     fmt=cfg.setup.history_format)
-        if s.diagfreq and self.calendar.istep % s.diagfreq == 0:
-            rec = self._diagnose(state_pre)
-            if s.print_points:
-                from .diagnostics import print_points_state
-                rec["points"] = print_points_state(
-                    self.whole_grid, self.gather_state(), points=self.points)
-            self.diag_log.append(rec)
-        if s.debug_model and self.calendar.istep >= s.debug_model_step:
-            self._debug_dump()
-        if self.calendar.is_boundary(s.dumpfreq, s.dumpfreq_n, dt):
-            self.write_restart()
-        self.timers.stop("History")
+        with self.timers("History"):
+            if self.history is not None:
+                with span("ice:history_accum"):
+                    self.history.accum(self.state, self.flux, self.forcing)
+                with span("ice:history_write"):
+                    self.history.maybe_write(self.calendar,
+                                             fmt=cfg.setup.history_format)
+            if s.diagfreq and self.calendar.istep % s.diagfreq == 0:
+                with span("ice:diagnostics"):
+                    rec = self._diagnose(state_pre)
+                    if s.print_points:
+                        from .diagnostics import print_points_state
+                        rec["points"] = print_points_state(
+                            self.whole_grid, self.gather_state(),
+                            points=self.points)
+                self.diag_log.append(rec)
+            if s.debug_model and self.calendar.istep >= s.debug_model_step:
+                with span("ice:diagnostics"):
+                    self._debug_dump()
+            if self.calendar.is_boundary(s.dumpfreq, s.dumpfreq_n, dt):
+                with span("ice:restart"):
+                    self.write_restart()
         self.timers.stop("Total")
         return self.state
 
@@ -412,17 +417,19 @@ class Model:
                                   total_water_mass)
         cfg = self.cfg
         istep = self.calendar.istep
-        rec = {k: float(v)
+        rec = {k: host_read("diag", v)
                for k, v in runtime_diags(self.grid, self.state).items()}
         if not cfg.setup.conserv_check:
             return rec
-        rec["total_energy"] = float(total_energy(self.grid, self.state))
-        rec["total_water"] = float(total_water_mass(self.grid, self.state))
+        rec["total_energy"] = host_read("diag",
+                                        total_energy(self.grid, self.state))
+        rec["total_water"] = host_read("diag", total_water_mass(self.grid,
+                                                                self.state))
         bud = hemispheric_budgets(
             self.grid, state_pre, self.state, self.flux, self.forcing,
             cfg.setup.dt, frazil_in_fresh=cfg.forcing.update_ocn_f,
             pond_lvl=cfg.tracers.tr_pond_lvl)
-        rec.update({f"bud_{k}": float(v) for k, v in bud.items()})
+        rec.update({f"bud_{k}": host_read("diag", v) for k, v in bud.items()})
         # the water budget closes to ~5e-4 relative (a small snow-ice
         # bookkeeping term); 1% catches any genuinely lost budget term.
         # Prescribed ice and restoring change mass with no flux term, so
@@ -436,22 +443,22 @@ class Model:
                 f"freshwater budget closure violated at step {istep}: "
                 f"residual {rec['bud_water_residual']:.3e} kg vs budget "
                 f"{wscale:.3e} kg (early checkpoint written)"))
-        if bool(check_state(self.state,
-                            mesh=tile_mesh(self.grid.bc))["nonfinite"]):
+        if host_read("diag", check_state(
+                self.state, mesh=tile_mesh(self.grid.bc))["nonfinite"]):
             self._abort(FloatingPointError(
                 f"non-finite state at step {istep} (early checkpoint "
                 "written)"))
         tc = self.flux.transport_checks
         if tc:
             tol = 1e-9 if self.state.aicen.dtype == torch.float64 else 1e-4
-            cons = max(float(tc.get("cons_err_area", 0.0)),
-                       float(tc.get("cons_err_tracer", 0.0)))
+            cons = max(host_read("diag", tc.get("cons_err_area", 0.0)),
+                       host_read("diag", tc.get("cons_err_tracer", 0.0)))
             rec["transport_cons_err"] = cons
             bad = [msg for key, msg in (
                 ("oob", "departure points out of bounds"),
                 ("neg_mass", "negative mass after remap"),
                 ("mono_violation", "tracer monotonicity violation"))
-                if bool(tc.get(key, False))]
+                if host_read("diag", tc.get(key, False))]
             if cons > tol:
                 bad.append(f"global conservation error {cons:.3e}")
             if bad:

@@ -63,6 +63,7 @@ from ..dynamics.evp import evp_ocean_stress, evp_solve
 from ..dynamics.transport import ADVECT
 from ..dynamics.vp import implicit_solver
 from ..ops import lsum
+from ..utils.timers import span
 from .flux import Forcing, zeros_fluxout
 from .state import State, tracer_registry
 
@@ -84,10 +85,14 @@ _DYN_NCAT_KEYS = (
 _CLEANUP_KEYS = ("fresh", "fsalt", "fhocn")
 
 
+@contextlib.contextmanager
 def _phase(timer, name):
-    """Context of one named phase: `timer(name)` if a timer is given (any
-    callable returning a context manager), else nothing."""
-    return contextlib.nullcontext() if timer is None else timer(name)
+    """Context of one named phase: the program's range "ice:<name>"
+    (utils/timers.py `span`) inside `timer(name)` if a timer is given (any
+    callable returning a context manager)."""
+    with contextlib.nullcontext() if timer is None else timer(name):
+        with span("ice:" + name):
+            yield
 
 
 #: the values of `dynamics.advection`: the exact remap, the transports of
@@ -887,7 +892,11 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     """One full thermo+dyn timestep. Returns (state, FluxOut). `timer`, if
     given, is called with a phase name ('therm1', 'therm2', 'fsd' under
     tr_fsd, 'bgc' under skl_bgc, 'dyn', 'transport', 'ridge', 'ocean') and
-    returns a context manager that the phase runs in."""
+    returns a context manager that the phase runs in. While a profiler
+    runs, each phase opens the range "ice:<phase>" inside the timer's
+    context, and the code before therm1, between the thermo phases and
+    the dynamics, and after ocean "ice:prep", "ice:tendencies" and
+    "ice:fluxes"."""
     cfg = ms.cfg
     registry = ms.registry
     hin_max = ms.hin_max
@@ -900,8 +909,10 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     # flux below carries rain-on-ice minus the reservoir change so the
     # freshwater identity closes exactly
     pond_lvl = cfg.tracers.tr_pond_lvl
-    pond_mass_pre = pond_reservoir_mass(state.trcrn, state.aicen, pond_lvl)
-    age_init = _mean_age(state)
+    with span("ice:prep"):
+        pond_mass_pre = pond_reservoir_mass(state.trcrn, state.aicen,
+                                            pond_lvl)
+        age_init = _mean_age(state)
 
     # --- thermodynamics -------------------------------------------------
     with _phase(timer, "therm1"):
@@ -939,17 +950,19 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     # pond reservoir change over the thermo phases: positive = water
     # retained on the ice, deducted from the coupler fresh flux. Rain over
     # ice enters the ice system here; the uncaptured remainder runs off
-    pond_mass_post = pond_reservoir_mass(state.trcrn, state.aicen, pond_lvl)
-    fpond_net = (pond_mass_post - pond_mass_pre) / dt     # kg/m^2/s
-    rain_on_ice = fc.frain * aice_init
+    with span("ice:tendencies"):
+        pond_mass_post = pond_reservoir_mass(state.trcrn, state.aicen,
+                                             pond_lvl)
+        fpond_net = (pond_mass_post - pond_mass_pre) / dt     # kg/m^2/s
+        rain_on_ice = fc.frain * aice_init
 
-    daidtt = (state.aice - aice_init) / dt
-    dvidtt = (state.vice - vice_init) / dt
-    dvsdtt = (state.vsno - vsno_init) / dt
-    age_posttherm = _mean_age(state)
-    dagedtt = (age_posttherm - age_init) / dt
-    aice_posttherm, vice_posttherm = state.aice, state.vice
-    vsno_posttherm = state.vsno
+        daidtt = (state.aice - aice_init) / dt
+        dvidtt = (state.vice - vice_init) / dt
+        dvsdtt = (state.vsno - vsno_init) / dt
+        age_posttherm = _mean_age(state)
+        dagedtt = (age_posttherm - age_init) / dt
+        aice_posttherm, vice_posttherm = state.aice, state.vice
+        vsno_posttherm = state.vsno
 
     # --- dynamics + transport + ridging ---------------------------------
     state, dyn, tchecks = step_dyn_transport(ms, grid, state, fc, strairx_T,
@@ -976,57 +989,59 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
             frzmlt = torch.clamp(
                 cst.cprho * (fc.Tf - sst_new) * fc.hmix / dt,
                 -1000.0, 1000.0)
-    # melt/freeze onset day-of-year (Model.step resets them yearly)
-    mlt_onset = torch.where((state.mlt_onset <= 0.0) & (agg["meltt"] > 0.0),
-                            fc.yday, state.mlt_onset)
-    frz_onset = torch.where((state.frz_onset <= 0.0) & (t2.frazil > 0.0),
-                            fc.yday, state.frz_onset)
-    state = state.replace(sst=sst_new, frzmlt=frzmlt,
-                          mlt_onset=mlt_onset, frz_onset=frz_onset)
+    with span("ice:fluxes"):
+        # melt/freeze onset day-of-year (Model.step resets them yearly)
+        mlt_onset = torch.where(
+            (state.mlt_onset <= 0.0) & (agg["meltt"] > 0.0), fc.yday,
+            state.mlt_onset)
+        frz_onset = torch.where((state.frz_onset <= 0.0) & (t2.frazil > 0.0),
+                                fc.yday, state.frz_onset)
+        state = state.replace(sst=sst_new, frzmlt=frzmlt,
+                              mlt_onset=mlt_onset, frz_onset=frz_onset)
 
-    zf = torch.zeros_like(aice_init)
-    # update_ocn_f=False keeps the frazil mass fluxes out of the coupler
-    # fresh/salt budget
-    ocn_f = cfg.forcing.update_ocn_f
-    flux = zeros_fluxout(grid.shape, state.aicen.dtype,
-                         state.aicen.device).replace(
-        fsens=agg["fsens"], flat=agg["flat"], flwout=agg["flwout"],
-        evap=agg["evap"], fswabs=agg["fswabs"],
-        strairx=strairx_T, strairy=strairy_T,
-        fhocn=fhocn_ice,
-        fresh=agg["fresh"] + rain_on_ice - fpond_net + clean["fresh"] +
-              (t2.freshn if ocn_f else t2.freshn - t2.freshn_frazil),
-        fsalt=agg["fsalt"] + agg["fsalt_drain"] + clean["fsalt"] +
-              (t2.fsaltn if ocn_f else t2.fsaltn - t2.fsaltn_frazil),
-        fswthru=agg["fswthru"],
-        strocnx=dyn["strocnx"], strocny=dyn["strocny"],
-        meltt=agg["meltt"], meltb=agg["meltb"], melts=agg["melts"],
-        meltl=t2.meltl, congel=agg["congel"], frazil=t2.frazil,
-        snoice=agg["snoice"], alvdr=agg["alvdr"], alvdf=agg["alvdf"],
-        alidr=agg["alidr"], alidf=agg["alidf"],
-        albice=agg["albice"],
-        fsurf=agg["fsurf"], fcondtop=agg["fcondtop"],
-        fbot=fbot_used, fcondbot=agg["fcondbot"], fswint=agg["fswint"],
-        fpond=fpond_net, apeff=agg["apond"], meltsliq=agg["meltsliq"],
-        snowfrac=agg["snowfrac"], albsno=agg["albsno"],
-        albpnd=agg["albpnd"], dvsdtd=(state.vsno - vsno_posttherm) / dt,
-        dvsdtt=dvsdtt, dagedtt=dagedtt,
-        dagedtd=(_mean_age(state) - age_posttherm) / dt,
-        dpnd_initial=agg["dpnd_initial"], dpnd_expon=agg["dpnd_expon"],
-        dpnd_freebd=agg["dpnd_freebd"], dpnd_dlid=agg["dpnd_dlid"],
-        ncat_fluxes={**agg["ncat_fluxes"], **fsd_tend,
-                     **{k: dyn[k] for k in _DYN_NCAT_KEYS if k in dyn},
-                     "dpnd_melt": t2.dpnd_melt,
-                     "aice_init": aice_init},
-        divu=dyn["divu"], shear=dyn["shear"], Delta=dyn["Delta"],
-        strintx=dyn["strintx"], strinty=dyn["strinty"],
-        taubx=dyn["taubx"], tauby=dyn["tauby"], strength=dyn["strength"],
-        dardg1dt=dyn.get("dardg1dt", zf), dardg2dt=dyn.get("dardg2dt", zf),
-        dvirdgdt=dyn.get("dvirdgdt", zf), opening=dyn.get("opening", zf),
-        transport_checks=tchecks,
-        daidtt=daidtt, dvidtt=dvidtt,
-        daidtd=(state.aice - aice_posttherm) / dt,
-        dvidtd=(state.vice - vice_posttherm) / dt,
-        Tref=agg["Tref"], Qref=agg["Qref"], Uref=agg["Uref"])
+        zf = torch.zeros_like(aice_init)
+        # update_ocn_f=False keeps the frazil mass fluxes out of the coupler
+        # fresh/salt budget
+        ocn_f = cfg.forcing.update_ocn_f
+        flux = zeros_fluxout(grid.shape, state.aicen.dtype,
+                             state.aicen.device).replace(
+            fsens=agg["fsens"], flat=agg["flat"], flwout=agg["flwout"],
+            evap=agg["evap"], fswabs=agg["fswabs"],
+            strairx=strairx_T, strairy=strairy_T,
+            fhocn=fhocn_ice,
+            fresh=agg["fresh"] + rain_on_ice - fpond_net + clean["fresh"] +
+                  (t2.freshn if ocn_f else t2.freshn - t2.freshn_frazil),
+            fsalt=agg["fsalt"] + agg["fsalt_drain"] + clean["fsalt"] +
+                  (t2.fsaltn if ocn_f else t2.fsaltn - t2.fsaltn_frazil),
+            fswthru=agg["fswthru"],
+            strocnx=dyn["strocnx"], strocny=dyn["strocny"],
+            meltt=agg["meltt"], meltb=agg["meltb"], melts=agg["melts"],
+            meltl=t2.meltl, congel=agg["congel"], frazil=t2.frazil,
+            snoice=agg["snoice"], alvdr=agg["alvdr"], alvdf=agg["alvdf"],
+            alidr=agg["alidr"], alidf=agg["alidf"],
+            albice=agg["albice"],
+            fsurf=agg["fsurf"], fcondtop=agg["fcondtop"],
+            fbot=fbot_used, fcondbot=agg["fcondbot"], fswint=agg["fswint"],
+            fpond=fpond_net, apeff=agg["apond"], meltsliq=agg["meltsliq"],
+            snowfrac=agg["snowfrac"], albsno=agg["albsno"],
+            albpnd=agg["albpnd"], dvsdtd=(state.vsno - vsno_posttherm) / dt,
+            dvsdtt=dvsdtt, dagedtt=dagedtt,
+            dagedtd=(_mean_age(state) - age_posttherm) / dt,
+            dpnd_initial=agg["dpnd_initial"], dpnd_expon=agg["dpnd_expon"],
+            dpnd_freebd=agg["dpnd_freebd"], dpnd_dlid=agg["dpnd_dlid"],
+            ncat_fluxes={**agg["ncat_fluxes"], **fsd_tend,
+                         **{k: dyn[k] for k in _DYN_NCAT_KEYS if k in dyn},
+                         "dpnd_melt": t2.dpnd_melt,
+                         "aice_init": aice_init},
+            divu=dyn["divu"], shear=dyn["shear"], Delta=dyn["Delta"],
+            strintx=dyn["strintx"], strinty=dyn["strinty"],
+            taubx=dyn["taubx"], tauby=dyn["tauby"], strength=dyn["strength"],
+            dardg1dt=dyn.get("dardg1dt", zf), dardg2dt=dyn.get("dardg2dt", zf),
+            dvirdgdt=dyn.get("dvirdgdt", zf), opening=dyn.get("opening", zf),
+            transport_checks=tchecks,
+            daidtt=daidtt, dvidtt=dvidtt,
+            daidtd=(state.aice - aice_posttherm) / dt,
+            dvidtd=(state.vice - vice_posttherm) / dt,
+            Tref=agg["Tref"], Qref=agg["Qref"], Uref=agg["Uref"])
 
     return state, flux

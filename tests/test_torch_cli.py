@@ -367,10 +367,19 @@ def test_run_profile_writes_a_trace(tmp_path, capsys):
                     "--set", "thermo.nit=2"])
     out = capsys.readouterr().out
     assert rc == 0 and '"istep": 1' in out
+    assert '"syncs": {' in out
     trace = tmp_path / "p" / "run.pt.trace.json"
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::add" for e in events)
+    # the program's own ranges: phases, blocking reads, Timers
+    ranges = {e["name"] for e in events
+              if e.get("cat") == "user_annotation"}
+    assert {"ice:therm1", "ice:dyn", "ice:transport", "ice:ridge",
+            "sync:picard", "sync:rebin", "sync:ridge", "Forcing",
+            "History"} <= ranges
+    # the benchmark's names for its window and its phases stay its own
+    assert not any(r == "step" or r.startswith("phase:") for r in ranges)
 
 
 @pytest.mark.parametrize("opts", ["evpwide", "iopio", "iopio2"])

@@ -29,6 +29,8 @@ from cice_tpu.config import Config as JConfig  # noqa: E402
 from cice_tpu_torch.columns import mushy as tm  # noqa: E402
 from cice_tpu_torch.columns import thermo_vertical as ttv  # noqa: E402
 from cice_tpu_torch.config import Config as TConfig  # noqa: E402
+from cice_tpu_torch.measure import count_host_reads  # noqa: E402
+from cice_tpu_torch.utils.timers import sync_counts  # noqa: E402
 from test_torch_thermo import (DT, NILYR, NSLYR, NCAT, NX, NY, T,  # noqa: E402
                                _close, _close_tree, _map, _therm_args,
                                inputs)  # noqa: F401
@@ -149,18 +151,11 @@ def test_temperature_changes_mushy_matches_jax(inputs):  # noqa: F811
     ts = ref[0]
     assert float(np.asarray(ts.Tsf).max()) == 0.0        # melting closure
     assert float(np.asarray(ts.Tsf).min()) < -5.0
-    # the port reads one scalar per Picard pass and nothing else
-    reads = []
-    orig = torch.Tensor.__bool__
-
-    def counting(self):
-        reads.append(1)
-        return orig(self)
-    torch.Tensor.__bool__ = counting
-    try:
-        ttv.temperature_changes(DT, NILYR, NSLYR, salin=[T(x) for x in S],
-                                Tm=[T(x) for x in Tm], **_map(T, kw),
-                                **static)
-    finally:
-        torch.Tensor.__bool__ = orig
-    assert 1 <= len(reads) <= static["nit"]
+    # the port reads one scalar per Picard pass and nothing else, each
+    # counted at the program's "picard" site
+    before = sync_counts().get("picard", 0)
+    reads = count_host_reads(lambda: ttv.temperature_changes(
+        DT, NILYR, NSLYR, salin=[T(x) for x in S], Tm=[T(x) for x in Tm],
+        **_map(T, kw), **static))
+    assert 1 <= reads <= static["nit"]
+    assert sync_counts()["picard"] - before == reads
