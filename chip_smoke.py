@@ -16,7 +16,10 @@ per source, started together), then:
      on the same moving ice after `construct_fields` and on the dense case
      (`measure.dense_transport_case`: ice moving everywhere), each timed
      beside the bound of the work its data leaves and the every-candidate
-     bound;
+     bound; then K4 (therm1's BL99 temperature solve) against
+     `temperature_changes_plain` on the inputs gx1pop_step's first step
+     hands it: every output and the pass count bit for bit, one launch a
+     solve, timed beside its bound (bytes) and the plain version;
   4. the dynamics-transport path: Model(gx1pop_dyn).run_dynamics(1) (K1 +
      K2) against the plain path after the same step;
   5. the main path: Model(gx1pop_step, device="cuda").run(3), the full
@@ -41,13 +44,13 @@ per source, started together), then:
      tx1 fixtures it writes. One full-width gx1pop_step on a y-cyclic
      grid raises naming ROADMAP A9 (no kernel takes that grid, and on the
      card nothing stands in for one) and, with the plain engines named,
-     steps with no launch; tx1pop,evp1d raises the same way on the tripole
+     steps with no launch of K1-K3; tx1pop,evp1d raises the same way on the tripole
      grid. Then gx1pop,evp1d for 5 days (120 steps, JRA55 3-hourly
      forcing, clim ocean, daily history and npz restarts) and gx3pop,evp1d
      for 5 days, each through K1 + K2 with 120 launches of each; tx1pop
      for 1 day with the plain EVP loop and the plain transport named
-     (evp_algorithm='standard_2d', remap_kernel='xla'), no kernel
-     launched. Before it, the fold's halo on the card is
+     (evp_algorithm='standard_2d', remap_kernel='xla'), no launch of
+     K1-K3. Before it, the fold's halo on the card is
      checked against the CPU. Each run must pass the baseline oracle
      (finite vice, aice <= 1, extent in both hemispheres) and a clean
      `check_state`; it prints the comparison with baselines/r05 (deltas at
@@ -164,7 +167,12 @@ per source, started together), then:
      (1e-4 of its scale) beside the envelope's own.
 
 Every path is driven with the launch counters set to 0 just before it and
-read just after.
+read just after, K4's among them: on one process K4 launches once a step
+wherever the thermodynamics are BL99 (ktherm=1; none under mushy), with
+whatever engines the dynamics and the transport name, and on a rank's
+tile of phases 15 and 16 it takes the per-pass route (a launch a pass and
+one for the epilogue, as often on every rank). The main path's plain
+reference runs the plain temperature solve too, with no launch.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 results, and as the last line {"ok": true, "device": {...}}. Any failure
@@ -188,6 +196,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def with_k4(expect: dict, m, steps: int) -> dict:
+    """`expect`, the launches of K1-K3, with K4's after `steps` steps of
+    Model `m` in one process: one whole-grid launch a step under BL99
+    (ktherm=1), none under the mushy or the zero-layer thermodynamics."""
+    return dict(expect, bl99_whole=steps if m.cfg.thermo.ktherm == 1 else 0,
+                bl99_per_pass=0)
 
 
 class PhaseTimer:
@@ -298,10 +314,11 @@ def restart_and_history(C, dev, smi, reset_counters, read_counters) -> dict:
         c.run(2)
         torch.cuda.synchronize()
         lc = read_counters()
-        for what, lau in (("A", la), ("C", lc)):
-            if lau["evp_fused"] < 1 or lau["tracer_fluxes"] < 1:
+        for what, lau, m_, n_ in (("A", la, a, 4), ("C", lc, c, 2)):
+            if lau["evp_fused"] < 1 or lau["tracer_fluxes"] < 1 or \
+                    lau != with_k4(lau, m_, n_):
                 fail(f"a kernel of the restart run {what} was not "
-                     f"launched: {lau}")
+                     f"launched as it must be: {lau}")
         same_state(c.state, a.state, "restarted run C vs uninterrupted A "
                    "after 4 steps")
         if c.calendar != a.calendar:
@@ -535,6 +552,7 @@ def baseline_runner(dev, smi, reset_counters, read_counters):
             fail(f"baseline {label}: the oracle failed ({res['final']})")
         if cs["unstable"] or cs["nonfinite"]:
             fail(f"baseline {label}: check_state {cs}")
+        expect = with_k4(expect, m, nsteps)
         if launches != expect:
             fail(f"baseline {label}: launches {launches}, expected {expect}")
         shutil.rmtree(os.path.join(root, label), ignore_errors=True)
@@ -601,7 +619,7 @@ def baseline_runs(dev, smi, reset_counters, read_counters) -> dict:
         finite = bool(torch.isfinite(m.state.aicen).all())
         print(f"gx1pop_step on a y-cyclic grid with the plain engines named: "
               f"1 step, launches {launches}, finite {finite}")
-        if launches != none or not finite:
+        if launches != with_k4(none, m, 1) or not finite:
             fail("gx1pop_step on a y-cyclic grid on the plain engines")
         del m
         raises_a9(cli.baseline_model(cfg_for("tx1pop,evp1d", "tx1pop_k1",
@@ -732,8 +750,8 @@ def c_grid_and_other_dynamics(dev, smi, reset_counters, read_counters):
                 s.aicen, s.vicen, s.vsnon, s.uvel, s.vvel, s.uvelE,
                 s.vvelN, s.stressp, s.a11, *s.trcrn.values()))
             cs = {k: float(v) for k, v in check_state(s).items()}
-            expect = {"evp_fused": 0, "transport_fused": k2_per_step,
-                      "tracer_fluxes": 0}
+            expect = with_k4({"evp_fused": 0, "transport_fused": k2_per_step,
+                              "tracer_fluxes": 0}, sm, 1)
             print(f"one step of {label} at 320x384 on {smi}: {ms:.1f} ms "
                   f"(host clock, the first step: it reads the forcing's "
                   f"first records), launches {launches}, "
@@ -759,8 +777,11 @@ def c_grid_and_other_dynamics(dev, smi, reset_counters, read_counters):
         print(f"box2001_config (80x80, upwind): 24 steps in {wall:.2f} s, "
               f"launches {launches}, finite {fin}, aice max "
               f"{float(bm.state.aice.max()):.4f}")
-        if not fin or any(launches.values()):
-            fail("box2001_config: non-finite state or a kernel launched")
+        if not fin or launches != with_k4(
+                {"evp_fused": 0, "transport_fused": 0, "tracer_fluxes": 0},
+                bm, 24):
+            fail("box2001_config: non-finite state or a kernel other than "
+                 f"K4 launched: {launches}")
         out["box2001_s"] = wall
     finally:
         shutil.rmtree(BASELINE_ROOT, ignore_errors=True)
@@ -827,8 +848,9 @@ def column_physics(dev, smi, reset_counters, read_counters):
               f"launches {launches}; "
               "phases by CUDA events (ms per step): "
               + ", ".join(f"{k} {v:.3f}" for k, v in phase.items()))
-        if launches != k12(2):
-            fail(f"{what}: launches {launches}, expected {k12(2)}")
+        if launches != with_k4(k12(2), m, 2):
+            fail(f"{what}: launches {launches}, expected "
+                 f"{with_k4(k12(2), m, 2)}")
         return m, dict(step_ms=step_ms, phase_ms=phase, ops=ops,
                        reads=reads, launches=launches)
 
@@ -974,7 +996,8 @@ def column_physics(dev, smi, reset_counters, read_counters):
             cs = {k: float(v) for k, v in check_state(st).items()}
             ok = (fin and d["aice_max"] <= 1.0 + 1e-6 and d["extent_nh"] > 0
                   and d["extent_sh"] > 0 and not cs["unstable"]
-                  and not cs["nonfinite"] and launches == k12(2))
+                  and not cs["nonfinite"]
+                  and launches == with_k4(k12(2), sm, 2))
             print(f"gx1pop,evp1d{',' + opt if opt else ''} on {smi}: "
                   f"{ms:.1f} ms for the second"
                   f" step (host clock), {peak_mb:.1f} MB allocated above "
@@ -998,6 +1021,75 @@ def column_physics(dev, smi, reset_counters, read_counters):
 #: ('forcing.highfreq=true' rides as a --set)
 BGC_SETS = ("aerosol", "isotope", "modal", "bgcskl", "bgcz", "zaero",
             "alt03", "alt04", "forcing.highfreq=true")
+
+
+def therm1_solve(dev, smi) -> dict:
+    """K4 against `temperature_changes_plain` on the arguments step_therm1
+    hands `temperature_changes` on gx1pop_step's first step: every output
+    bit for bit and the same passes; the kernel's device ms a solve
+    (profiler) and a call's ms (CUDA events), launches a solve, the bound
+    (bytes: `bl99.bound_bytes`) and the plain ms."""
+    import torch
+    from cice_tpu_torch import config as C
+    from cice_tpu_torch.columns import thermo_vertical as tv
+    from cice_tpu_torch.kernels import bl99 as kbl99
+    from cice_tpu_torch.measure import bound_ms, therm1_problem, timed_ms
+    from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.utils.timers import sync_counts
+    dt, nilyr, nslyr, kw = therm1_problem(Model(C.gx1pop_step(),
+                                                device=dev))
+    reads = sync_counts().get("picard", 0)
+    ref = tv.temperature_changes_plain(dt, nilyr, nslyr, **kw)
+    torch.cuda.synchronize()
+    passes = sync_counts().get("picard", 0) - reads
+    out = kbl99.temperature_changes_cuda(dt, nilyr, nslyr, **kw)
+    npass = int(out[3])
+
+    def flat(o):
+        ts, qs, qi = o[:3]
+        v = []
+        for x in ts:
+            v += x if isinstance(x, list) else [x]
+        return v + list(qs) + list(qi)
+    err, differ = 0.0, 0
+    for a, b in zip(flat(out), flat(ref)):
+        err = max(err, _exact([a], [b]))
+        differ += int(not torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32)))
+    if differ or npass != passes:
+        fail(f"K4 differs from the plain temperature solve: {differ} "
+             f"outputs not bit for bit (max abs {err}), passes {npass} "
+             f"against {passes}")
+    def solve():
+        return kbl99.temperature_changes_cuda(dt, nilyr, nslyr, **kw)
+    before = kbl99.whole_launches
+    wall = timed_ms(solve, 10)
+    launches = (kbl99.whole_launches - before) / 11
+    # the kernel's own time: a wrapper call at gx1 is mostly host time
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            solve()
+        torch.cuda.synchronize()
+    ms = sum(e.device_time_total for e in prof.key_averages()
+             if "bl99_kernel" in e.key) / 5e3
+    plain = timed_ms(lambda: tv.temperature_changes_plain(dt, nilyr, nslyr,
+                                                          **kw), 3)
+    ncol = kw["Tsf"].numel()
+    nb = kbl99.bound_bytes(ncol, npass, nslyr, nilyr)
+    bound, by = bound_ms(nb, 0.0)
+    info = kbl99.device_info(dev.index or 0, False, nslyr, nilyr)
+    print(f"K4 bl99: {ncol} columns, {npass} passes, bit for bit with the "
+          f"plain version (max abs error {err}); {ms:.4f} ms of device time "
+          f"a solve ({wall:.4f} ms a call on the host clock) in "
+          f"{launches:g} launch ({info['sm_count']} SMs x "
+          f"{info['blocks_per_sm']} blocks of {info['threads']} threads, "
+          f"{info['registers']} registers); plain {plain:.3f} ms; bound "
+          f"{bound:.4f} ms by {by} ({nb / 1e6:.1f} MB) on {smi}")
+    return dict(ms=ms, call_ms=wall, plain_ms=plain, bound_ms=bound,
+                bound_by=by,
+                passes=npass, launches=launches, max_abs_err=err,
+                columns=ncol, info=info)
 
 
 def _exact(got, ref) -> float:
@@ -1065,8 +1157,8 @@ def biogeochemistry(dev, smi, reset_counters, read_counters):
           "start at its peak): " + ", ".join(
               f"{k} {v:.3f} ({timer.peak_mb[k]:.0f} MB)"
               for k, v in phase.items()))
-    if launches_auto != {"evp_fused": 3, "transport_fused": 3,
-                         "tracer_fluxes": 0}:
+    if launches_auto != with_k4({"evp_fused": 3, "transport_fused": 3,
+                                 "tracer_fluxes": 0}, m, 3):
         fail(f"bgcz, 3 steps through K1 + K2: launches {launches_auto}")
     dt = m.cfg.setup.dt
     ny, nx = m.grid.shape
@@ -1142,8 +1234,9 @@ def biogeochemistry(dev, smi, reset_counters, read_counters):
     fin = all(bool(torch.isfinite(t).all()) for t in m3.state.trcrn.values())
     print(f"one step of gx1pop_step (K1 + K3) with bgcz from that state: "
           f"launches {out['launches_k3']}, finite {fin}, checks {tc}")
-    if out["launches_k3"] != {"evp_fused": 1, "transport_fused": 0,
-                              "tracer_fluxes": 1} or not fin or tc["oob"]:
+    if out["launches_k3"] != with_k4({"evp_fused": 1, "transport_fused": 0,
+                                      "tracer_fluxes": 1}, m3, 1) or \
+            not fin or tc["oob"]:
         fail("bgcz through K1 + K3 failed")
     del m3
     gc.collect()
@@ -1185,7 +1278,7 @@ def biogeochemistry(dev, smi, reset_counters, read_counters):
                 *st.trcrn.values()))
             d = {k: float(v) for k, v in runtime_diags(sm.grid, st).items()}
             cs = {k: float(v) for k, v in check_state(st).items()}
-            expect = {k: 3 * v for k, v in per_step.items()}
+            expect = with_k4({k: 3 * v for k, v in per_step.items()}, sm, 3)
             ok = (fin and d["aice_max"] <= 1.0 + 1e-6 and d["extent_nh"] > 0
                   and d["extent_sh"] > 0 and not cs["unstable"]
                   and not cs["nonfinite"] and launches == expect)
@@ -1292,8 +1385,8 @@ def biogeochemistry(dev, smi, reset_counters, read_counters):
             am.step()
             each(am)
         launches = read_counters()
-        if launches != {"evp_fused": 24, "transport_fused": 24,
-                        "tracer_fluxes": 0}:
+        if launches != with_k4({"evp_fused": 24, "transport_fused": 24,
+                                "tracer_fluxes": 0}, am, 24):
             fail(f"gx1pop,evp1d,aerosol: launches {launches}")
         out["aerosol_day"] = report(
             "gx1pop,evp1d,aerosol for 24 steps: aerosol species 1", rec,
@@ -1437,7 +1530,7 @@ def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
                 launches = read_counters()
                 flush_ms, errs = sync_ms(m.flush_io)
                 chase()
-                if launches != k12(24) or errs:
+                if launches != with_k4(k12(24), m, 24) or errs:
                     fail(f"writer {label}: launches {launches}, flush "
                          f"errors {errs}")
                 busy = [x for x, w in steps if w]
@@ -1538,7 +1631,7 @@ def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
                 np.abs(host["Faii_sen"][ai <= 1e-11]).max() != 0.0:
             fail("the coupler's exports are not finite, in range and "
                  "zero without ice")
-        if any(x != k12(1) for x in lau):
+        if any(x != with_k4(k12(1), ice.model, 1) for x in lau):
             fail(f"coupled steps: launches {lau}")
         out["coupler"] = dict(step_ms=step_ms, exports_ms=exp_ms,
                               nexports=len(host), launches=lau[0],
@@ -1574,7 +1667,8 @@ def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
             lc = read_counters()
         finally:
             tpres.prescribe_ice_state = orig
-        if lc != none or len(worst) != 24 or max(worst) != 0.0:
+        if lc != with_k4(none, mc, 24) or len(worst) != 24 or \
+                max(worst) != 0.0:
             fail(f"prescribed: launches {lc}, |aice - data*hm| {worst}")
         res = max(abs(r["bud_water_residual"]) / max(
             abs(r["bud_dM"]), abs(r["bud_water_in"]), 1.0)
@@ -1620,7 +1714,7 @@ def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
                 if err != 0.0 or sst_err != 0.0 or not moved > 0:
                     fail(f"restoring: nudge error {err}, sst {sst_err}, "
                          f"moved {moved}")
-        if any(x != k12(1) for x in lau_d):
+        if any(x != with_k4(k12(1), md, 1) for x in lau_d):
             fail(f"restoring: launches {lau_d}")
         cs = {k: float(v) for k, v in tdiag.check_state(md.state).items()}
         if cs["nonfinite"]:
@@ -1671,7 +1765,7 @@ def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
             steps_e[f_] = me.state
         same_state(steps_e["pop_nc"], steps_e["pop_bin"],
                    "a gx1pop,evp1d step on the pop_nc grid vs pop_bin")
-        if any(x != k12(1) for x in lau_e.values()):
+        if any(x != with_k4(k12(1), me, 1) for x in lau_e.values()):
             fail(f"grids: launches {lau_e}")
         out["grids"] = dict(load_ms=load_ms, mom_max_ulp=mom_ulp,
                             launches=lau_e["pop_nc"])
@@ -1751,7 +1845,7 @@ def coupling_and_io(dev, smi, reset_counters, read_counters) -> dict:
         debug_reads = count_host_reads(lambda: tdiag.debug_ice(
             mg.grid, mg.state, pts[0]["j"], pts[0]["i"]))
         recs = [r for r in mg.diag_log if "points" in r]
-        if not recs or any(x != k12(1) for x in lau_g):
+        if not recs or any(x != with_k4(k12(1), mg, 1) for x in lau_g):
             fail(f"probes: records {len(recs)}, launches {lau_g}")
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out",
@@ -2150,6 +2244,7 @@ def sharded_state(dev, smi) -> dict:
         rec = dict(max_abs_err=err, tile=st[0]["tile"],
                    k1_launches_per_rank=[x["k1_launches"] for x in st],
                    flux_launches_per_rank=[x[kernels[kernel]] for x in st],
+                   k4_launches_per_rank=_k4_per_rank(st, f"phase 15 {label}"),
                    messages_per_step=per("exchanges"),
                    staged_bytes_per_step=per("staged_bytes"),
                    ms_per_step=ms, staging_ms=stg, card_wait_ms=wait,
@@ -2160,7 +2255,8 @@ def sharded_state(dev, smi) -> dict:
               f"over {len(refs[kernel])} state leaves against 2 steps on one "
               f"process; K1 launches per rank {rec['k1_launches_per_rank']}, "
               f"{'K3' if kernel == 'fused_pallas' else 'K2'} launches per "
-              f"rank {rec['flux_launches_per_rank']} (2 steps); per step: "
+              f"rank {rec['flux_launches_per_rank']}, K4 per-pass launches "
+              f"per rank {rec['k4_launches_per_rank']} (2 steps); per step: "
               f"messages {rng(rec['messages_per_step'], '.0f')}, bytes "
               f"staged {rng(rec['staged_bytes_per_step'], '.0f')}, ms "
               f"{rng(ms)} = staging copies {rng(stg)} + waits for the card "
@@ -2204,6 +2300,19 @@ def sharded_state(dev, smi) -> dict:
 VP_RTOL = {"float32": 2e-3, "float64": 1e-8}
 
 
+def _k4_per_rank(st, what) -> list:
+    """K4's launches on each rank of a sharded run (stats `st`): every
+    rank's tile takes the per-pass route, a launch a pass and one for the
+    epilogue, and the ranks agree on the passes, so each rank launches as
+    often, at least twice a step, and never on the whole-grid route."""
+    n = [x["k4_per_pass_launches"] for x in st]
+    if any(x["k4_whole_launches"] for x in st) or len(set(n)) != 1 or \
+            n[0] < 2 * st[0]["steps"]:
+        fail(f"{what}: K4's launches per rank: per pass {n}, whole grid "
+             f"{[x['k4_whole_launches'] for x in st]}")
+    return n
+
+
 def _rank_lines(label, r, smi) -> dict:
     """Per-step stats of a sharded run's ranks (ranges over ranks), printed
     on one line with the card's name and power limit; returns them."""
@@ -2216,6 +2325,7 @@ def _rank_lines(label, r, smi) -> dict:
     rest = [a - b - c - d for a, b, c, d in zip(ms, stg, wait, wire)]
     rec = dict(tile=st[0]["tile"], steps=n,
                k2_launches_per_rank=[x["k2_launches"] for x in st],
+               k4_launches_per_rank=_k4_per_rank(st, f"phase 16 {label}"),
                messages_per_step=per("exchanges"),
                collectives_per_step=per("collectives"),
                staged_bytes_per_step=per("staged_bytes"), ms_per_step=ms,
@@ -2223,7 +2333,8 @@ def _rank_lines(label, r, smi) -> dict:
                rest_ms=rest)
     rng = lambda v, f=".1f": f"{min(v):{f}}-{max(v):{f}}"
     print(f"phase 16 {label} (tiles {rec['tile']}, {n} step(s)): K2 "
-          f"launches per rank {rec['k2_launches_per_rank']}; per step: ms "
+          f"launches per rank {rec['k2_launches_per_rank']}, K4 per-pass "
+          f"launches per rank {rec['k4_launches_per_rank']}; per step: ms "
           f"{rng(ms)} = staging copies {rng(stg)} + waits for the card "
           f"{rng(wait)} + gloo calls {rng(wire)} + the rest {rng(rest)} "
           f"(host clock); messages {rng(rec['messages_per_step'], '.0f')}, "
@@ -2404,15 +2515,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from cice_tpu_torch import config as C
+    from cice_tpu_torch.columns import thermo_vertical as tv
     from cice_tpu_torch.columns.ridging import ridge_ice
     from cice_tpu_torch.dynamics import remap_exact as rx
     from cice_tpu_torch.dynamics.evp import evp_solve
-    from cice_tpu_torch.kernels import _build, evp as kevp, remap as kremap
+    from cice_tpu_torch.kernels import _build, bl99 as kbl99, evp as kevp
+    from cice_tpu_torch.kernels import launch_counts, remap as kremap
     from cice_tpu_torch.measure import (bound_ms, dense_transport_case,
                                         evp_problem, flux_case,
                                         gpu_name_and_power_limit, timed_ms)
     from cice_tpu_torch.model.diagnostics import check_state
     from cice_tpu_torch.model.driver import Model
+    from cice_tpu_torch.model import step as tstep
     from cice_tpu_torch.model.flux import FLUXOUT_FIELDS
     from cice_tpu_torch.model.step import step_dyn_horiz
 
@@ -2626,18 +2740,20 @@ def main() -> int:
               f"every candidate {k3_all_bound:.4f} ms by {k3_all_by} "
               f"({nb_all / 1e6:.1f} MB, {nf_all / 1e9:.3f} GFLOP)")
 
+    # ---- K4: therm1's temperature solve vs the plain version -----------
+    k4 = therm1_solve(dev, smi)
+
     def reset_counters():
         kevp.launches = kremap.launches = kremap.flux_launches = 0
         kevp.persistent_launches = kevp.stream_launches = 0
+        kbl99.whole_launches = kbl99.per_pass_launches = 0
 
     def read_counters():
         if kevp.persistent_launches != kevp.launches or kevp.stream_launches:
             fail(f"K1 left the persistent route at gx1: {kevp.launches} "
                  f"solves, {kevp.persistent_launches} persistent, "
                  f"{kevp.stream_launches} stream")
-        return {"evp_fused": kevp.launches,
-                "transport_fused": kremap.launches,
-                "tracer_fluxes": kremap.flux_launches}
+        return launch_counts()
 
     def compare(s, r, what):
         """Kernel-path state s against plain-path state r: u/v within 1e-3
@@ -2719,14 +2835,26 @@ def main() -> int:
         fail(f"check_state: {cs}")
     if not wres <= 1e-2:
         fail(f"freshwater budget residual {wres} of the budget")
-    if launches["evp_fused"] < 1 or launches["tracer_fluxes"] < 1:
-        fail(f"a kernel of the main path was not launched: {launches}")
+    if launches["evp_fused"] < 1 or launches["tracer_fluxes"] < 1 or \
+            launches != with_k4(launches, main, steps):
+        fail(f"a kernel of the main path was not launched as it must be "
+             f"(K4 once a step): {launches}")
 
-    # the same steps on the plain path (plain EVP loop + plain transport)
+    # the same steps on the plain path: the plain EVP loop, the plain
+    # transport and the plain temperature solve (no kernel launched)
     ref_m = Model(scfg.with_overrides(**plain_over), device=dev)
-    ref_m.run(steps)
+    reset_counters()
+    real_solve = tstep.temperature_changes
+    tstep.temperature_changes = tv.temperature_changes_plain
+    try:
+        ref_m.run(steps)
+    finally:
+        tstep.temperature_changes = real_solve
+    ref_launches = read_counters()
     rtc = {k: float(v) for k, v in ref_m.tchecks.items()}
-    print(f"plain path checks {rtc}")
+    print(f"plain path checks {rtc}, launches {ref_launches}")
+    if any(ref_launches.values()):
+        fail(f"the plain path launched a kernel: {ref_launches}")
     if rtc["neg_mass"] != tc["neg_mass"] or rtc["oob"] != tc["oob"]:
         fail("the kernel and plain paths raise different transport flags")
     compare(s, ref_m.state, f"main path vs plain path after {steps} steps")
@@ -2743,7 +2871,8 @@ def main() -> int:
           f"{auto_launches}, checks {atc}")
     check_transport(atc, "coupled step with remap_kernel='auto'")
     if auto_launches["evp_fused"] < 1 or \
-            auto_launches["transport_fused"] < 1:
+            auto_launches["transport_fused"] < 1 or \
+            auto_launches != with_k4(auto_launches, auto_m, 1):
         fail(f"a kernel of the 'auto' coupled step was not launched: "
              f"{auto_launches}")
 
@@ -2804,22 +2933,28 @@ def main() -> int:
                             if " auto " in label},
         "tracer_fluxes": {label: run["flux_launches_per_rank"]
                           for label, run in runs15.items()
-                          if " fused_pallas " in label}}
+                          if " fused_pallas " in label},
+        "bl99_per_pass": {label: run["k4_launches_per_rank"]
+                          for label, run in runs15.items()}}
     on_a7 = {k: {p: v[k] for p, v in a7["launches"].items()}
-             for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+             for k in ("evp_fused", "transport_fused", "tracer_fluxes",
+                       "bl99_whole")}
     on_base = {k: {r: base[r]["launches"][k]
                    for r in ("gx1pop", "gx3pop", "tx1pop")}
-               for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+               for k in ("evp_fused", "transport_fused", "tracer_fluxes",
+                         "bl99_whole")}
     on_cols = {k: {"mushy_dedd_step": cols["mushy_dedd"]["launches"][k],
                    "mushy_dedd_day": cols["day"]["launches"][k],
                    **{o: v["launches"][k] for o, v in cols["sets"].items()}}
-               for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+               for k in ("evp_fused", "transport_fused", "tracer_fluxes",
+                         "bl99_whole")}
     on_bgc = {k: {"bgcz_auto_3_steps": bgc["launches_auto"][k],
                   "bgcz_k3_step": bgc["launches_k3"][k],
                   "bgcz_day": bgc["bgcz_day"]["launches"][k],
                   "aerosol_24_steps": bgc["aerosol_day"]["launches"][k],
                   **{o: v["launches"][k] for o, v in bgc["sets"].items()}}
-              for k in ("evp_fused", "transport_fused", "tracer_fluxes")}
+              for k in ("evp_fused", "transport_fused", "tracer_fluxes",
+                        "bl99_whole")}
 
     def on_bgcz(kid, kname):
         k = bgc["kernels"][kid]
@@ -2902,6 +3037,27 @@ def main() -> int:
          "bgcz": on_bgcz("K3", "tracer_fluxes"),
          "coupling_io": {"launches": on_a7["tracer_fluxes"]},
          "sharded_state_launches_per_rank": on_tiles["tracer_fluxes"]},
+        {"name": "bl99_column", "route": "cuda",
+         "source": "cice_tpu_torch/csrc/bl99_column.cu", "replaces": None,
+         "launches": launches["bl99_whole"], "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": None, "passes": k4["passes"],
+         "launches_per_solve": k4["launches"],
+         "launches_auto_step": auto_launches["bl99_whole"],
+         "launches_restart_history": {
+             run: rh["launches"][run]["bl99_whole"] for run in ("A", "C")},
+         "launches_baseline": on_base["bl99_whole"],
+         "cgrid": {run: cgrid[run]["launches"]["bl99_whole"]
+                   for run in ("gridc", "dynpicard")},
+         "columns": {"launches": on_cols["bl99_whole"]},
+         "bgcz": {"launches": on_bgc["bl99_whole"]},
+         "coupling_io": {"launches": on_a7["bl99_whole"]},
+         "sharded_state_per_pass_launches_per_rank":
+             on_tiles["bl99_per_pass"],
+         "sharded_eap_vp_per_pass_launches_per_rank": {
+             label: run["k4_launches_per_rank"]
+             for label, run in dyn16["runs"].items()}},
     ]
     out = {"kernels": results}
     # ridging passes on the main path's last state and deformation

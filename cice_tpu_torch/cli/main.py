@@ -33,7 +33,8 @@ EVP on a sharded state over that many spawned ranks.
 CUDA where the model runs on the card) and writes a Chrome trace into
 DIR, with the program's own ranges (utils/timers.py: the Timers, the
 phases "ice:<phase>", the blocking reads "sync:<site>"). `run` prints
-the process's blocking reads by site under "syncs".
+the process's blocking reads by site under "syncs" and its launches of
+the hand-written kernels (K1-K4, K4 by route) under "launches".
 
 `test --type baseline` runs the full length of an option set (gx3pop,
 gx1pop, tx1pop) with history, archives {"final", "series", "timers"} as
@@ -464,6 +465,7 @@ def cmd_case(args):
 
 def cmd_run(args):
     from ..model.driver import Model
+    from ..kernels import launch_counts
     from ..utils.timers import sync_counts
     m = Model(build_config(args), device=args.device,
               enable_history=args.history)
@@ -486,6 +488,7 @@ def cmd_run(args):
     print(json.dumps({"istep": m.calendar.istep, "wall_s": round(wall, 2),
                       "timers": {k: round(v, 2) for k, v in m.timers.items()},
                       "syncs": sync_counts(),
+                      "launches": launch_counts(),
                       "diags": _diags(m)}))
     return 0
 

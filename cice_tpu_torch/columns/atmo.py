@@ -27,17 +27,21 @@ class AtmoCoeffs(NamedTuple):
     Uref: Optional[torch.Tensor] = None   # 10 m wind speed (m/s)
 
 
+RHOA_MIN = 1e-8    # floor of the air density in q_sat (kg/m^3)
+TSFK_MIN = 150.0   # floor of the surface temperature in q_sat (K)
+
+
 def saturated_specific_humidity_ice(TsfK, rhoa):
-    """q_sat over ice (kg/kg). TsfK floored at 150 K: a negative absolute
-    temperature (possible only from degenerate unconverged columns) would
-    flip the exp() to +inf."""
-    return (cst.qqqice / torch.clamp(rhoa, min=1e-8)) * \
-        torch.exp(-cst.TTTice / torch.clamp(TsfK, min=150.0))
+    """q_sat over ice (kg/kg). TsfK floored at TSFK_MIN: a negative
+    absolute temperature (possible only from degenerate unconverged
+    columns) would flip the exp() to +inf."""
+    return (cst.qqqice / torch.clamp(rhoa, min=RHOA_MIN)) * \
+        torch.exp(-cst.TTTice / torch.clamp(TsfK, min=TSFK_MIN))
 
 
 def saturated_specific_humidity_ocn(TsfK, rhoa):
-    return (cst.qqqocn / torch.clamp(rhoa, min=1e-8)) * \
-        torch.exp(-cst.TTTocn / torch.clamp(TsfK, min=150.0))
+    return (cst.qqqocn / torch.clamp(rhoa, min=RHOA_MIN)) * \
+        torch.exp(-cst.TTTocn / torch.clamp(TsfK, min=TSFK_MIN))
 
 
 def _psimu(xd):

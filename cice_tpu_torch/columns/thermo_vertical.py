@@ -24,6 +24,18 @@ from ..ops import clip
 
 TSF_ERRMAX = 5.0e-4   # Picard exit: largest temperature change anywhere (K)
 
+# The solve's other constants, read by the plain version and by the CUDA
+# kernel's wrapper (kernels/bl99.kernel_consts)
+T_MIN = -100.0        # lower end of the physical window [T_MIN, 0] (degC)
+TM_MARGIN = 1e-6      # enthalpy_ice takes T at most Tm - TM_MARGIN (degC)
+T_COND_MAX = -0.1     # conductivity_ice takes T at most this (degC)
+#: 'bubbly' conductivity (Pringle et al. 2007):
+#: k = (BUBBLY_K0 - BUBBLY_KT T + BUBBLY_KS S/T) rhoi/BUBBLY_RHOI
+BUBBLY_K0, BUBBLY_KT, BUBBLY_KS, BUBBLY_RHOI = 2.11, 0.011, 0.09, 917.0
+TT_MIN = 1e-8         # floor of Tin * Tin0 in the BL99 heat capacity
+CI_MIN = cst.cp_ice * 0.01   # floor of the heat capacity (J/kg/K)
+DENOM_MIN = 1e-30     # floor of the elimination's |denominator|
+
 
 # ---------------------------------------------------------------------------
 # salinity / melting-temperature profiles (BL99 / MU71)
@@ -48,7 +60,7 @@ def melting_temps(salin):
 
 def enthalpy_ice(T: torch.Tensor, Tm: float) -> torch.Tensor:
     """q_ice(T) (J/m^3), T<Tm<=0: sensible + brine latent + ocean part."""
-    Ts = torch.clamp(T, max=Tm - 1e-6)
+    Ts = torch.clamp(T, max=Tm - TM_MARGIN)
     return -cst.rhoi * (cst.cp_ice * (Tm - Ts)
                         + cst.Lfresh * (1.0 - Tm / Ts) - cst.cp_ocn * Tm)
 
@@ -74,11 +86,12 @@ def temp_from_enthalpy_snow(q):
 def conductivity_ice(salin: float, T, conduct: str = "bubbly"):
     """Thermal conductivity (W/m/K). MU71: k = kice + betak S/T; 'bubbly'
     (Pringle et al. 2007): k = (2.11 - 0.011 T + 0.09 S/T) rhoi/917."""
-    Ts = torch.clamp(T, max=-0.1)
+    Ts = torch.clamp(T, max=T_COND_MAX)
     if conduct == "MU71":
         k = cst.kice + cst.betak * salin / Ts
     else:
-        k = (2.11 - 0.011 * Ts + 0.09 * salin / Ts) * (cst.rhoi / 917.0)
+        k = (BUBBLY_K0 - BUBBLY_KT * Ts + BUBBLY_KS * salin / Ts) * \
+            (cst.rhoi / BUBBLY_RHOI)
     return torch.clamp(k, min=cst.kimin)
 
 
@@ -130,9 +143,34 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
     thicknesses (m); Tbot: bottom boundary temperature (degC, = Tf).
     The Picard iteration stops when the largest temperature change anywhere
     falls under TSF_ERRMAX or after `nit` passes: the exit test is global,
-    so every column takes the same number of passes, read on the host once
-    per pass. Returns (TempSolveOut, qsno_new, qice_new).
+    so every column takes the same number of passes. On CUDA tensors with
+    ktherm=1 the CUDA kernel K4 runs it (kernels/bl99.py: without a mesh
+    the exit is decided on the card, on a rank's tile it is read and
+    agreed on the host once per pass); otherwise `temperature_changes_plain`.
+    Returns (TempSolveOut, qsno_new, qice_new).
     """
+    from ..kernels import bl99
+    route = bl99.choose_route(Tsf, ktherm, mesh)
+    args = dict(Tsf=Tsf, qsno=qsno, qice=qice, salin=salin, Tm=Tm,
+                hilyr=hilyr, hslyr=hslyr, Tbot=Tbot, fswsfc=fswsfc,
+                Iswabs=Iswabs, shcoef=shcoef, lhcoef=lhcoef, potT=potT,
+                Qa=Qa, rhoa=rhoa, flw=flw, conduct=conduct, nit=nit,
+                mesh=mesh)
+    if route is None:
+        return temperature_changes_plain(dt, nilyr, nslyr, ktherm=ktherm,
+                                         **args)
+    return bl99.temperature_changes_cuda(dt, nilyr, nslyr, route=route,
+                                         **args)[:3]
+
+
+def temperature_changes_plain(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin,
+                              Tm, hilyr, hslyr, Tbot, fswsfc, Iswabs,
+                              shcoef, lhcoef, potT, Qa, rhoa, flw,
+                              conduct="bubbly", nit=20, ktherm=1,
+                              mesh=None):
+    """`temperature_changes` in PyTorch elementwise ops, the pass loop on
+    the host: the largest change is read once per pass (agreed across
+    `mesh`'s ranks)."""
     from .atmo import surface_fluxes
 
     mushy = ktherm == 2
@@ -151,7 +189,7 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
     else:
         Tin0 = [temp_from_enthalpy_ice(qice[k], Tm[k])
                 for k in range(nilyr)]
-    Tsf = torch.clamp(Tsf, -100.0, 0.0)   # [Tmin, Tsmelt] physical window
+    Tsf = torch.clamp(Tsf, T_MIN, 0.0)   # [Tmin, Tsmelt] physical window
 
     einit = sum(q * hslyr for q in qsno) + sum(q * hilyr for q in qice)
     ks = cst.ksno
@@ -190,9 +228,9 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
                   for k in range(nilyr)]
         else:
             ci = [cst.cp_ice - cst.Lfresh * Tm[k] /
-                  torch.clamp(Tin[k] * Tin0[k], min=1e-8)
+                  torch.clamp(Tin[k] * Tin0[k], min=TT_MIN)
                   for k in range(nilyr)]
-        etai = [dt / (cst.rhoi * torch.clamp(ci[k], min=cst.cp_ice * 0.01)
+        etai = [dt / (cst.rhoi * torch.clamp(ci[k], min=CI_MIN)
                       * hilyr) for k in range(nilyr)]
 
         fsurf, dfsurf, _, _, _ = surface_fluxes(
@@ -234,12 +272,12 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
         beta = [None] * (n_lay + 1)
         for k in range(n_lay, 0, -1):
             denom = dg[k] if k == n_lay else dg[k] + sp[k] * beta[k + 1]
-            denom = torch.where(denom.abs() < 1e-30, 1e-30, denom)
+            denom = torch.where(denom.abs() < DENOM_MIN, DENOM_MIN, denom)
             num = rh[k] - (sp[k] * alpha[k + 1] if k < n_lay else 0.0)
             alpha[k] = num / denom
             beta[k] = -sb[k] / denom
         den0 = dg[0] + sp[0] * beta[1]
-        den0 = torch.where(den0.abs() < 1e-30, 1e-30, den0)
+        den0 = torch.where(den0.abs() < DENOM_MIN, DENOM_MIN, den0)
         Tsf_c = (rh[0] - sp[0] * alpha[1]) / den0
 
         # melting where the cold closure wants Tsf > 0; clamp to the
@@ -247,14 +285,14 @@ def temperature_changes(dt, nilyr, nslyr, *, Tsf, qsno, qice, salin, Tm,
         # the unclamped solve below 0 K, where exp(-TTT/TsfK) overflows)
         melting = Tsf_c > 0.0
         Tsf = torch.clamp(torch.where(melting, cst.Tsmelt, Tsf_c),
-                          -100.0, 0.0)
+                          T_MIN, 0.0)
         x_prev = Tsf
         Tlay = []
         for k in range(1, n_lay + 1):
             x_prev = alpha[k] + beta[k] * x_prev
             Tlay.append(x_prev)
-        Tsn = [torch.clamp(Tlay[k], -100.0, 0.0) for k in range(nslyr)]
-        Tin = [clip(Tlay[nslyr + k], -100.0, Tm[k])
+        Tsn = [torch.clamp(Tlay[k], T_MIN, 0.0) for k in range(nslyr)]
+        Tin = [clip(Tlay[nslyr + k], T_MIN, Tm[k])
                for k in range(nilyr)]
         return Tsf, Tsn, Tin
 

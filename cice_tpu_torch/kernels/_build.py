@@ -17,7 +17,8 @@ import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("evp_fused", "transport_fused", "tracer_fluxes")
+SOURCES = ("evp_fused", "transport_fused", "tracer_fluxes",
+           "bl99_column")
 
 # -fmad=false keeps every multiply and add separately rounded, as the plain
 # PyTorch versions compute them, so kernel and plain version agree to
@@ -73,9 +74,15 @@ def build(names=SOURCES) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it on first use."""
+    """The loaded library for csrc/<name>.cu. Where it is not built yet,
+    every source not built yet is compiled at once (their nvcc processes
+    run side by side, so a checkout's first run waits for the slowest
+    rather than for each kernel as it is first needed)."""
     if name not in _LIBS:
-        _LIBS[name] = ctypes.CDLL(build((name,))[name])
+        path = _lib_path(name)
+        if not os.path.exists(path):
+            build(tuple(dict.fromkeys(SOURCES + (name,))))
+        _LIBS[name] = ctypes.CDLL(path)
     return _LIBS[name]
 
 

@@ -139,6 +139,31 @@ def transport_state_problem(ms, grid, state, dt):
     return (grid, mom_n, mom_e, am, trm, table), moving
 
 
+def therm1_problem(m, edit=None):
+    """(dt, nilyr, nslyr, keywords) that `step_therm1` hands
+    `temperature_changes` on the next step of Model `m` (the step is
+    taken), without `ktherm` and `mesh`; `edit(state)` may change `m`'s
+    state first."""
+    from .model import step as tstep
+    if edit is not None:
+        m.state = edit(m.state)
+    got = []
+    real = tstep.temperature_changes
+
+    def spy(dt, nilyr, nslyr, **kw):
+        got.append((dt, nilyr, nslyr, dict(kw)))
+        return real(dt, nilyr, nslyr, **kw)
+    tstep.temperature_changes = spy
+    try:
+        m.step()
+    finally:
+        tstep.temperature_changes = real
+    dt, nilyr, nslyr, kw = got[0]
+    kw.pop("ktherm")
+    kw.pop("mesh")
+    return dt, nilyr, nslyr, kw
+
+
 def count_ops(fn) -> int:
     """The PyTorch operations `fn()` dispatches (aten calls, views
     included): an upper count of the kernel launches a call of eager code

@@ -211,10 +211,14 @@ def _job_model_steps(*, group, cfg, nsteps, shape, device="cpu",
 
 
 def _counters(mesh) -> dict:
+    from ..kernels import bl99 as kbl99
     from ..kernels import evp as kevp
     from ..kernels import remap as kremap
     return dict(k1_launches=kevp.launches, k2_launches=kremap.launches,
-                k3_launches=kremap.flux_launches, exchanges=mesh.exchanges,
+                k3_launches=kremap.flux_launches,
+                k4_whole_launches=kbl99.whole_launches,
+                k4_per_pass_launches=kbl99.per_pass_launches,
+                exchanges=mesh.exchanges,
                 collectives=mesh.collectives, staged_bytes=mesh.staged_bytes,
                 staged_seconds=mesh.staged_seconds,
                 wait_seconds=mesh.wait_seconds,

@@ -38,6 +38,10 @@ Syncs. Every blocking read a step makes adds one to its site's count in
 this process (`sync_counts`): picard, rebin, ridge (the host decisions of
 the columns), diag, probe and, on a CUDA device, step_end. The counts are
 per process because the column code that reads has no model at hand.
+
+Launches. `print_all` also prints the hand-written kernels' launches by
+kernel and route, as `kernels.launch_counts` reads them from the kernel
+modules' own counters (host-side, no device read).
 """
 
 from __future__ import annotations
@@ -136,7 +140,8 @@ class Timers:
 
     def print_all(self, stats: bool = False) -> str:
         """Formatted dump (ice_timer_print_all:691) with the process's
-        blocking reads by site; returns the text."""
+        blocking reads by site and kernel launches by route; returns the
+        text."""
         lines = ["Timing information:", ""]
         for name, e in self.entries.items():
             if e.count == 0 and e.accum == 0.0:
@@ -150,5 +155,11 @@ class Timers:
         if syncs:
             lines += ["", "syncs (blocking device reads by site):"]
             lines += [f"Sync  {k:>12}: {n:12d}" for k, n in syncs.items()]
+        from ..kernels import launch_counts
+        launches = {k: n for k, n in launch_counts().items() if n}
+        if launches:
+            lines += ["", "launches (hand-written kernels, by route):"]
+            lines += [f"Launch {k:>13}: {n:10d}"
+                      for k, n in launches.items()]
         text = "\n".join(lines)
         return text

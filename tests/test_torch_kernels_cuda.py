@@ -7,6 +7,13 @@ machine run them with
 
 (`--noconftest`: tests/conftest.py sets up JAX, which that machine lacks.)
 
+K4, therm1's BL99 temperature solve, equals `temperature_changes_plain`
+bit for bit in every output and in the pass count (`-k k4`): on the
+gx1pop state with both conductivities, at om025's size, on edge columns,
+in float64, on every (nslyr, nilyr) the library is built for, at an exit
+after one pass and at `nit`, on the per-pass route alone and on a 1x2
+mesh of two ranks sharing the card.
+
 The kernels keep every multiply and add separately rounded (nvcc
 -fmad=false), so they agree with the plain versions to f32 rounding of the
 summation order; the bars are the JAX package's engine-vs-engine gates.
@@ -816,3 +823,222 @@ def test_eap_on_the_card_against_the_cpu(cuda):
     assert all(bool(torch.isfinite(v).all()) for v in outs[1].values())
     assert float(outs[0]["uvel"].abs().max()) > 1e-3
     assert rel["uvel"] < 1e-1 and rel["vvel"] < 1e-1
+
+
+# ---------------------------------------------------------------------------
+# K4: therm1's BL99 temperature solve (kernels/bl99.py) against the plain
+# version, bit for bit in every output and in the pass count
+# ---------------------------------------------------------------------------
+
+def _therm1_args(cuda, nx=320, ny=384, over=None, edit=None):
+    """The arguments step_therm1 hands `temperature_changes` on the first
+    step of gx1pop_step(nx, ny) on the card (`measure.therm1_problem`)."""
+    from cice_tpu_torch.measure import therm1_problem
+    m = Model(tconfig.gx1pop_step(nx, ny).with_overrides(**(over or {})),
+              device=cuda)
+    out = therm1_problem(m, edit)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.fixture(scope="module")
+def gx1_therm1(cuda):
+    return _therm1_args(cuda)
+
+
+def _flat(out):
+    ts, qsno_new, qice_new = out[:3]
+    names, vals = [], []
+    for f, v in zip(ts._fields, ts):
+        v = v if isinstance(v, list) else [v]
+        names += [f"{f}[{i}]" for i in range(len(v))]
+        vals += v
+    names += [f"qsno_new[{i}]" for i in range(len(qsno_new))]
+    names += [f"qice_new[{i}]" for i in range(len(qice_new))]
+    return names, vals + list(qsno_new) + list(qice_new)
+
+
+def _k4_against_plain(dt, nilyr, nslyr, kw, route="whole"):
+    """K4 and `temperature_changes_plain` on the same arguments: every
+    output equal bit for bit (signed zeros and NaNs included). Returns
+    (the plain version's passes, K4's passes, the plain outputs)."""
+    from cice_tpu_torch.columns import thermo_vertical as tv
+    from cice_tpu_torch.kernels import bl99 as kbl99
+    from cice_tpu_torch.utils.timers import sync_counts
+    reads = sync_counts().get("picard", 0)
+    ref = tv.temperature_changes_plain(dt, nilyr, nslyr, **kw)
+    torch.cuda.synchronize()
+    passes = sync_counts().get("picard", 0) - reads
+    got = kbl99.temperature_changes_cuda(dt, nilyr, nslyr, route=route, **kw)
+    names, g = _flat(got)
+    _, r = _flat(ref)
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    bad = {}
+    for n, a, b in zip(names, g, r):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+                a.contiguous().view(bits[b.dtype]),
+                b.contiguous().view(bits[b.dtype])):
+            bad[n] = float((a - b).abs().nan_to_num(float("inf")).max())
+    assert len(names) == len(r) and not bad, \
+        f"K4 differs from the plain version (max abs): {bad}"
+    return passes, int(got[3]), ref
+
+
+@pytest.mark.parametrize("conduct", ["bubbly", "MU71"])
+def test_k4_equals_plain_on_gx1pop(cuda, gx1_therm1, conduct):
+    from cice_tpu_torch import constants as cst
+    dt, nilyr, nslyr, kw = gx1_therm1
+    snow = kw["hslyr"] * nslyr > cst.hs_min
+    assert bool(snow.any()) and bool((~snow).any())
+    passes, npass, ref = _k4_against_plain(dt, nilyr, nslyr,
+                                           dict(kw, conduct=conduct))
+    assert npass == passes >= 2
+
+
+def test_k4_equals_plain_at_om025_size(cuda, gx1_therm1):
+    """The gx1pop columns tiled to 5 x 1080 x 1440 (om025's 7.8 M)."""
+    dt, nilyr, nslyr, kw = gx1_therm1
+
+    def big(t):
+        if not isinstance(t, torch.Tensor):
+            return [big(x) for x in t] if isinstance(t, list) else t
+        reps = (1, 3, 5) if t.dim() == 3 else (3, 5)
+        return t.repeat(*reps)[..., :1080, :1440].contiguous()
+    kw = {k: big(v) for k, v in kw.items()}
+    assert kw["Tsf"].shape == (5, 1080, 1440)
+    passes, npass, _ = _k4_against_plain(dt, nilyr, nslyr, kw)
+    assert npass == passes >= 2
+
+
+def test_k4_equals_plain_on_edge_columns(cuda):
+    """Vanishing ice (aicen 1e-10, thinner than hi_min), snow below and
+    above hs_min on it, a band whose surface melts, surfaces below the
+    -100 C window."""
+    import dataclasses
+    from cice_tpu_torch import constants as cst
+
+    def edit(st):
+        a, v, s = st.aicen.clone(), st.vicen.clone(), st.vsnon.clone()
+        a[:, 180:190], v[:, 180:190] = 1e-10, 1e-10 * 0.03
+        s[:, 180:185], s[:, 185:190] = 1e-10 * 5e-5, 1e-10 * 0.2
+        return dataclasses.replace(st, aicen=a, vicen=v, vsnon=s)
+    dt, nilyr, nslyr, kw = _therm1_args(cuda, edit=edit)
+    # a melting surface: far more sunshine on half of the thick ice
+    thick = kw["hilyr"] * nilyr > 0.5
+    thick[..., ::2] = False
+    kw["fswsfc"] = torch.where(thick, kw["fswsfc"] + 4000.0, kw["fswsfc"])
+    kw["Tsf"] = kw["Tsf"].clone()
+    kw["Tsf"][:, 20:24] = -150.0
+    hs = kw["hslyr"] * nslyr
+    assert bool(((hs > 0) & (hs <= cst.hs_min)).any())
+    assert bool((hs > cst.hs_min).any())
+    passes, npass, ref = _k4_against_plain(dt, nilyr, nslyr, kw)
+    assert npass == passes
+    assert bool((ref[0].Tsf == 0.0).any()), "no surface melts"
+    assert bool((ref[0].Tsf < -5.0).any())
+
+
+@pytest.mark.parametrize("errmax,nit,want", [(1e30, 20, 1), (-1.0, 5, 5),
+                                             (-1.0, 0, 0)],
+                         ids=["exit_at_pass_1", "reaches_nit", "nit_0"])
+def test_k4_exit_where_the_plain_loop_exits(cuda, gx1_therm1, monkeypatch,
+                                            errmax, nit, want):
+    from cice_tpu_torch.columns import thermo_vertical as tv
+    monkeypatch.setattr(tv, "TSF_ERRMAX", errmax)
+    dt, nilyr, nslyr, kw = gx1_therm1
+    passes, npass, _ = _k4_against_plain(dt, nilyr, nslyr,
+                                         dict(kw, nit=nit))
+    assert npass == passes == want
+
+
+def test_k4_equals_plain_in_float64(cuda, gx1_therm1):
+    dt, nilyr, nslyr, kw = gx1_therm1
+    f64 = lambda v: ([x.double() for x in v] if isinstance(v, list) and
+                     isinstance(v[0], torch.Tensor) else
+                     v.double() if isinstance(v, torch.Tensor) else v)
+    passes, npass, _ = _k4_against_plain(
+        dt, nilyr, nslyr, {k: f64(v) for k, v in kw.items()})
+    assert npass == passes >= 2
+
+
+@pytest.mark.parametrize("over", [{"domain.nslyr": 3}, {"domain.nslyr": 5},
+                                  {"domain.nilyr": 1}],
+                         ids=["nslyr3", "nslyr5", "nilyr1"])
+def test_k4_equals_plain_on_the_other_built_shapes(cuda, over):
+    dt, nilyr, nslyr, kw = _therm1_args(cuda, 48, 40, over)
+    passes, npass, _ = _k4_against_plain(dt, nilyr, nslyr, kw)
+    assert npass == passes >= 1
+
+
+def test_k4_shape_not_built_raises_on_the_card(cuda):
+    from cice_tpu_torch.kernels import launch_counts
+    m = Model(tconfig.gx1pop_step(48, 40).with_overrides(**{
+        "domain.nilyr": 4}), device=cuda)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="not built"):
+        m.step()
+    assert launch_counts() == before
+
+
+def test_k4_per_pass_route_equals_plain(cuda, gx1_therm1):
+    """The per-pass route (the sharded state's) without a mesh: bit for
+    bit, a host read and a launch a pass, one launch for the epilogue."""
+    from cice_tpu_torch.kernels import launch_counts
+    from cice_tpu_torch.utils.timers import sync_counts
+    dt, nilyr, nslyr, kw = gx1_therm1
+    launches = launch_counts().get("bl99_per_pass", 0)
+    passes, npass, _ = _k4_against_plain(dt, nilyr, nslyr, kw,
+                                         route="per_pass")
+    assert npass == passes >= 2
+    assert launch_counts()["bl99_per_pass"] - launches == passes + 1
+
+
+def test_k4_per_pass_on_a_1x2_mesh_equals_the_whole_grid(cuda, tmp_path):
+    """Two ranks on the card, each K4's per-pass route on its tile with
+    the exit agreed across them: the gathered outputs equal the whole
+    grid's one launch bit for bit, in as many passes."""
+    import test_torch_rank_jobs as rj
+    from cice_tpu_torch.kernels import _build
+    from cice_tpu_torch.kernels import bl99 as kbl99
+    from cice_tpu_torch.parallel import spawn
+    _build.build(("bl99_column",))
+    dt, nilyr, nslyr, kw = _therm1_args(cuda, 48, 40)
+    out = kbl99.temperature_changes_cuda(dt, nilyr, nslyr, **kw)
+    ref = [t.cpu().numpy() for t in _flat(out)[1]]
+    npass = int(out[3])
+    problem = rj.bl99_problem(dt, nilyr, nslyr, kw,
+                              str(tmp_path / "bl99.pkl"))
+    (r,) = spawn.launch([(rj.bl99_tiles, dict(problem=problem, shape=(1, 2),
+                                              device="cuda"), 2)],
+                        2, str(tmp_path), timeout=300.0)
+    assert len({x["digest"] for x in r}) == 1
+    for a, b in zip(r[0]["out"], ref):
+        assert a.tobytes() == b.tobytes()
+    for x in r:
+        assert x["stats"]["picard"] == npass >= 2
+        assert x["stats"]["launches"] == {"bl99_per_pass": npass + 1}
+
+
+def test_k4_model_step_reads_no_picard_and_launches_once(cuda, gx1_therm1,
+                                                         monkeypatch):
+    """A step without a mesh makes no Picard read and launches K4 once; a
+    solve is one launch whatever its passes."""
+    from cice_tpu_torch.columns import thermo_vertical as tv
+    from cice_tpu_torch.kernels import bl99 as kbl99
+    from cice_tpu_torch.kernels import launch_counts
+    from cice_tpu_torch.utils.timers import sync_counts
+    m = Model(tconfig.gx1pop_step(48, 40), device=cuda)
+    reads = sync_counts().get("picard", 0)
+    launches = launch_counts().get("bl99_whole", 0)
+    m.run(2)
+    torch.cuda.synchronize()
+    assert sync_counts().get("picard", 0) == reads
+    assert launch_counts()["bl99_whole"] - launches == 2
+    dt, nilyr, nslyr, kw = gx1_therm1
+    for errmax, want in ((1e30, 1), (-1.0, 20)):
+        monkeypatch.setattr(tv, "TSF_ERRMAX", errmax)
+        before = launch_counts()["bl99_whole"]
+        npass = kbl99.temperature_changes_cuda(dt, nilyr, nslyr,
+                                               **dict(kw, nit=20))[3]
+        assert int(npass) == want
+        assert launch_counts()["bl99_whole"] - before == 1

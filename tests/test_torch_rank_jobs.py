@@ -1,7 +1,8 @@
 """Rank jobs that only the tests run across spawned gloo ranks
 (`cice_tpu_torch.parallel.spawn.launch`): mesh layouts, sharded I/O, the
 tile-aware halo functions and a rank that leaves out a shift, the VP
-operator on a padded tile, and the launcher's own tests.
+operator on a padded tile, therm1's temperature solve on a rank's tile,
+and the launcher's own tests.
 
 The ranks import this module to find the jobs, so it imports pytest,
 torch and the port only, never JAX (test_torch_evp_wide.py and
@@ -275,6 +276,82 @@ def vp_host_reads(*, group, cfg, shape):
             setattr(torch.Tensor, name, orig)
     return reads, bool(torch.isfinite(out[0]).all()), \
         float(out[0].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# therm1's temperature solve on a rank's tile
+# ---------------------------------------------------------------------------
+
+BL99_LISTS = ("qsno", "qice", "Iswabs")
+
+
+def bl99_problem(dt, nilyr, nslyr, kw, path):
+    """Save the arguments of `temperature_changes` (`kw`: its keywords) as
+    arrays for `bl99_tiles`; returns the path."""
+    d = dict(dt=dt, nilyr=nilyr, nslyr=nslyr)
+    for k, v in kw.items():
+        if k in BL99_LISTS:
+            d[k] = [x.cpu().numpy() for x in v]
+        elif isinstance(v, torch.Tensor):
+            d[k] = v.cpu().numpy()
+        elif k != "mesh":
+            d[k] = v
+    return spawn.save(d, path)
+
+
+def _bl99_args(d, device, cut=lambda t: t):
+    kw = {}
+    for k, v in d.items():
+        if k in BL99_LISTS:
+            kw[k] = [cut(torch.as_tensor(x, device=device)) for x in v]
+        elif hasattr(v, "shape"):
+            kw[k] = cut(torch.as_tensor(v, device=device))
+        else:
+            kw[k] = v
+    return kw.pop("dt"), kw.pop("nilyr"), kw.pop("nslyr"), kw
+
+
+def _bl99_flat(out):
+    ts, qsno_new, qice_new = out
+    flat = []
+    for v in ts:
+        flat += list(v) if isinstance(v, list) else [v]
+    return flat + list(qsno_new) + list(qice_new)
+
+
+def bl99_whole(problem, device="cpu"):
+    """`temperature_changes` on the whole grid of `problem`: its outputs
+    flattened (TempSolveOut's fields, then qsno_new, qice_new)."""
+    from cice_tpu_torch.columns.thermo_vertical import temperature_changes
+    dt, nilyr, nslyr, kw = _bl99_args(load(problem), device)
+    out = temperature_changes(dt, nilyr, nslyr, **kw)
+    return [t.cpu().numpy() for t in _bl99_flat(out)]
+
+
+def bl99_tiles(*, group, problem, shape, device="cpu"):
+    """`temperature_changes` on this rank's tile of `problem`
+    (`bl99_problem`) with the exit agreed across a `shape` mesh: on CUDA
+    tensors K4's per-pass route. The outputs gathered whole; the Picard
+    host reads and the launches by route of this rank as stats."""
+    from cice_tpu_torch.columns.thermo_vertical import temperature_changes
+    from cice_tpu_torch.kernels import launch_counts
+    from cice_tpu_torch.utils.timers import sync_counts
+    mesh = Mesh(shape, group=group)
+    d = load(problem)
+    ny, nx = d["Tsf"].shape[-2:]
+    # contiguous tiles: on the CPU a vector loop's tail may round exp and
+    # pow otherwise than its body, so the shapes must keep the same tails
+    dt, nilyr, nslyr, kw = _bl99_args(d, device,
+                                      lambda t: mesh.tile(t).contiguous())
+    reads, launches = sync_counts().get("picard", 0), launch_counts()
+    out = temperature_changes(dt, nilyr, nslyr, mesh=mesh, **kw)
+    after = launch_counts()
+    outs = [mesh.all_gather_tiles(t.contiguous(), ny, nx)
+            for t in _bl99_flat(out)]
+    return rank_result(mesh, outs, dict(
+        picard=sync_counts().get("picard", 0) - reads,
+        launches={k: n - launches[k] for k, n in after.items()
+                  if n != launches[k]}))
 
 
 # ---------------------------------------------------------------------------
