@@ -24,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import torch  # noqa: E402
 
 from icebench import catalog, harness  # noqa: E402
-from icebench.control import Bfloat16State  # noqa: E402
+from icebench.control import control  # noqa: E402
 
 
 def main() -> int:
@@ -40,8 +40,9 @@ def main() -> int:
     bench = catalog.benchmark()
     dev = torch.device("cuda", 0)
     log = lambda s: print(f"calibrate: {s}", file=sys.stderr, flush=True)
+    config = catalog.config(catalog.workload(bench, args.workload)["config"])
     runs = [(int(s), "program", None) for s in args.seeds.split(",") if s]
-    runs += [(int(s), "control", Bfloat16State)
+    runs += [(int(s), "control", control(config))
              for s in args.control_seeds.split(",") if s]
     for seed, side, system in runs:
         out = harness.run_cell(bench, args.workload, seed, 0, False, dev,

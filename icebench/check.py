@@ -1,5 +1,6 @@
-"""The reference's side of a run: the frozen plain path stepped, in
-float64 and in float32, from the benchmark's initial state through the
+"""The reference's side of a run: the reference that the cell's
+configuration names (`catalog.reference`) stepped, in float64 and in
+float32, from the benchmark's initial state through the
 set-up's steps, and from the program's state before the check step after
 the window through that step; and the gaps of the program's states to it
 (`reference/compare.py`). It runs after the window has closed, the peak
@@ -14,7 +15,6 @@ import torch
 
 from .leaves import fill, leaves, to_host
 from .reference.compare import leaf_gaps, worst
-from .reference.model import ReferenceModel
 
 
 def _free(device):
@@ -23,16 +23,19 @@ def _free(device):
         torch.cuda.empty_cache()
 
 
-def gaps(run: dict, device, initial: dict, warm: int, start: dict,
-         pre: dict, n_pre: int, post: dict, log=print) -> dict:
+def gaps(reference, run: dict, device, initial: dict, warm: int,
+         start: dict, pre: dict, n_pre: int, post: dict, log=print) -> dict:
     """{"start_gap": (gap, leaf), "window_gap": (gap, leaf)}.
 
-    `initial` is the benchmark's initial state, `start` the program's
-    state after `warm` steps from it; `pre` the program's state after
-    `n_pre` steps and `post` after one step more."""
+    `reference` is the configuration's `ReferenceModel` class; `initial`
+    the benchmark's initial state, `start` the program's state after
+    `warm` steps from it; `pre` the program's state after `n_pre` steps
+    and `post` after one step more. A leaf that reads inf is logged with
+    whose fault it is: the program's, or the reference's in float32 or
+    float64 (`compare.leaf_gaps` reads inf for either)."""
     ref = {}
     for dtype in ("float64", "float32"):
-        m = ReferenceModel(run, device, dtype)
+        m = reference(run, device, dtype)
         z = m.zeros()
         st, cal = fill(z, initial), m.calendar(0)
         for _ in range(warm):
@@ -48,17 +51,26 @@ def gaps(run: dict, device, initial: dict, warm: int, start: dict,
         g = leaf_gaps(prog, r32, r64, device=device)
         out[f"{name}_gap"] = worst(g)
         for k, v in g.items():
-            if not math.isfinite(v):
-                log(f"{name}: leaf {k} non-finite values: program "
-                    f"{_nonfinite(prog.get(k))}, float32 reference "
-                    f"{_nonfinite(r32[k])}, float64 reference "
-                    f"{_nonfinite(r64[k])}")
+            if math.isfinite(v):
+                continue
+            refs = [f"the {p} reference holds {n} non-finite values"
+                    for p, n in (("float32", _nonfinite(r32[k])),
+                                 ("float64", _nonfinite(r64[k]))) if n]
+            if refs:
+                log(f"{name}: leaf {k} reads inf, the reference's fault: "
+                    + ", ".join(refs))
+            else:
+                n = _nonfinite(prog.get(k))
+                log(f"{name}: leaf {k} reads inf: the program's state "
+                    + ("lacks it" if n is None
+                       else f"holds {n} non-finite values"))
     return out
 
 
-def _nonfinite(t) -> str:
+def _nonfinite(t):
+    """The count of non-finite values in `t`; None if there is no `t`."""
     if t is None:
-        return "missing"
+        return None
     if not t.is_floating_point():
-        return "0"
-    return str(int((~torch.isfinite(t)).sum()))
+        return 0
+    return int((~torch.isfinite(t)).sum())

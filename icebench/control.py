@@ -7,15 +7,21 @@ tests do, and the comparison has to call it not correct."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from . import catalog
 from .leaves import fill, leaves
-from .reference.model import ReferenceModel
 
 
 class Bfloat16State:
-    def __init__(self, run: dict, device, history: bool, initial: dict):
-        self.ref = ReferenceModel(run, device, "float32")
+    """The system of a control run, on `reference`, a `ReferenceModel`
+    class; `control` binds the one of a configuration."""
+
+    def __init__(self, reference, run: dict, device, history: bool,
+                 initial: dict):
+        self.ref = reference(run, device, "float32")
         self.state = fill(self.ref.zeros(), initial)
         self.cal = self.ref.calendar(0)
 
@@ -33,3 +39,9 @@ class Bfloat16State:
 
     def close(self):
         self.ref = None
+
+
+def control(config: dict):
+    """The control's system for `config`, built as `run_cell` builds the
+    program: (run, device, history, initial)."""
+    return functools.partial(Bfloat16State, catalog.reference(config))

@@ -7,7 +7,8 @@ reference, the metrics and the result line.
 Set-up makes the cell's inputs from the seed (the grid is cached in
 `icebench/.cache/`; what an input makes for one run alone goes to a
 directory of the run's own under $TMPDIR), builds the initial state with
-the reference's code, builds the program's `Model` with history on, hands
+the code of the reference that the configuration names
+(`catalog.reference`), builds the program's `Model` with history on, hands
 it that state and drives it through the traffic's warm steps, the first of
 which loads the kernels (built into the checkout on its first run). The
 window then steps `Model.step` until `--seconds` have passed; with
@@ -38,7 +39,6 @@ from . import catalog, check
 from . import inputs as inp
 from .leaves import leaves, to_host
 from .phases import PhaseTimer
-from .reference.model import ReferenceModel
 from .trace import summarize
 from . import yardstick
 
@@ -114,11 +114,12 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
                     "setup.pointer_file": os.path.join(
                         run_dir, "restart", "ice.restart_file")})
         # the initial state, made by the reference's code from the seed
-        ref = ReferenceModel(run, device, config["precision"])
+        reference = catalog.reference(config)
+        ref = reference(run, device, config["precision"])
         gen = inp.generator(config["initial_state"]["kind"])
         s0 = leaves(gen.make_state(ref, config["initial_state"], seed))
         initial = to_host(s0)
-        nt = len(_table(ref))
+        nt = ref.tracer_count()
         ncat, (ny, nx) = ref.cfg.domain.ncat, ref.grid.shape
         ndte, ndtd = ref.cfg.dynamics.ndte, ref.cfg.setup.ndtd
         state_bytes = yardstick.state_bytes(s0)
@@ -186,9 +187,9 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
         if device.type == "cuda":
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
-        checks = check.gaps(run, device, initial, traffic["warm_steps"],
-                            start, pre, traffic["warm_steps"] + n, post,
-                            log=log)
+        checks = check.gaps(reference, run, device, initial,
+                            traffic["warm_steps"], start, pre,
+                            traffic["warm_steps"] + n, post, log=log)
         log(f"window {n} steps in {window_s:.3f} s; reference "
             f"{time.perf_counter() - t_ref:.2f} s")
         log("step ms: " + " ".join(f"{t * 1e3:.1f}" for t in times))
@@ -214,11 +215,6 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
         return {"ctx": ctx, "checks": checks, "n": n}
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-
-
-def _table(ref) -> list:
-    from .reference.ice.dynamics.remap_exact import build_flat_table
-    return build_flat_table(ref.static.registry)
 
 
 def _profiler(device):

@@ -1,7 +1,7 @@
 """The seeded initial ice state: CICE's default initial state (ice
 poleward of 60 degrees over the ocean, a parabolic thickness distribution,
-linear temperature profiles; `set_state_var` of the reference's frozen
-copy) with a seeded ice thickness and snow depth.
+linear temperature profiles; the `default_state` of the configuration's
+reference) with a seeded ice thickness and snow depth.
 
 Per cell, from smooth seeded fields u in [0, 1]: each category's ice
 volume times (1 + `thick` * (2 u_h - 1)) and its snow volume times (1 +
@@ -20,11 +20,10 @@ from ..leaves import fill, leaves
 
 
 def make_state(ref, params: dict, seed: int):
-    """The initial State of the reference model `ref` (reference.model.
-    ReferenceModel), in its dtype and on its device."""
-    from ..reference.ice.model.initial import set_state_var
+    """The initial state of the reference model `ref` (a `ReferenceModel`
+    of the configuration's reference), in its dtype and on its device."""
     g = ref.grid
-    st = leaves(set_state_var(ref.cfg, g, ref.zeros(), ref.forcing0.Tf))
+    st = leaves(ref.default_state())
     u = smooth.field(smooth.rng(seed, "seeded_caps"), g.shape, count=2)
     dt, dev = st["aicen"].dtype, st["aicen"].device
     t = lambda a: torch.as_tensor(a, device=dev).to(dt)

@@ -9,7 +9,9 @@ leaf that is zero in all three reads 0. The number compared is the worst
 leaf's gap. The program computes in float32, so a sound run reads about 1
 in every leaf, however noisy the leaf is (melt-pond residue, melt-onset
 flags that flip at a threshold): the envelope of the noisy leaves is wide.
-Any non-finite value in the program's state reads inf.
+Any non-finite value in the program's state reads inf, and so does any
+in either reference: a reference that is not finite judges nothing (an
+inf in r32 would widen the envelope to inf and read every program 0).
 """
 
 from __future__ import annotations
@@ -23,18 +25,19 @@ FLOOR = 2.0 ** -24
 
 def leaf_gaps(p: dict, r32: dict, r64: dict, device="cpu") -> dict:
     """{leaf: gap} over the reference's leaves, computed on `device`; a
-    leaf the program lacks reads inf."""
+    leaf the program lacks, or that holds a non-finite value in the
+    program or in either reference, reads inf."""
     out = {}
     for k, b in r64.items():
         if k not in p:
             out[k] = math.inf
             continue
         a = p[k].to(device=device, dtype=torch.float64)
-        if not bool(torch.isfinite(a).all()):
-            out[k] = math.inf
-            continue
         b = b.to(device=a.device, dtype=torch.float64)
         c = r32[k].to(device=a.device, dtype=torch.float64)
+        if not all(bool(torch.isfinite(x).all()) for x in (a, b, c)):
+            out[k] = math.inf
+            continue
         d = float(torch.linalg.vector_norm(a - b))
         den = max(float(torch.linalg.vector_norm(c - b)),
                   FLOOR * float(torch.linalg.vector_norm(b)))

@@ -8,5 +8,6 @@ engine no configuration uses are left out, and the plain engines (the
 EVP's plain loop, the plain exact remap) are the only ones it runs
 (`model.step.check_supported` refuses the rest). It never changes with
 the program: a later change to the program that gives other answers
-shows against it.
+shows against it. `reference.py` holds its `ReferenceModel`; a later
+reference may import these modules and add only its own engines.
 """

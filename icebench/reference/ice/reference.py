@@ -1,27 +1,35 @@
-"""The reference model: the frozen plain path (`reference/ice`) stepped
-from the same inputs as the program, in the precision it is given.
+"""The reference model of the configurations that name the reference
+"ice": this frozen plain path stepped from the same inputs as the
+program, in the precision it is given.
 
 It builds its own grid from the grid files, its own static tables, forcing
 and calendar, and steps with the plain engines (the EVP's plain loop, the
 plain exact remap); it refuses a configuration that needs an engine it
-does not carry (`ice.model.step.check_supported`). A step is what the program's `Model.step` does to the
-prognostic state in these configurations: the forcing at the calendar's
-instant, `model_step`, the calendar's advance and the yearly reset of the
-onset diagnostics. History, diagnostics and files change no state and are
-left out.
+does not carry (`model.step.check_supported`). A step is what the
+program's `Model.step` does to the prognostic state in these
+configurations: the forcing at the calendar's instant, `model_step`, the
+calendar's advance and the yearly reset of the onset diagnostics.
+History, diagnostics and files change no state and are left out.
+
+`ReferenceModel` keeps the contract that `icebench.catalog.reference`
+states; a reference of another directory may subclass it and import these
+frozen modules, adding only its own engines and its own `SUPPORTED`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ice.calendar import Calendar
-from .ice.config import Config
-from .ice.core.grid import make_grid
-from .ice.model.flux import zeros_forcing
-from .ice.model.forcing import default_ocn, get_forcing
-from .ice.model.state import State, zeros_state
-from .ice.model.step import ModelStatic, model_step
+from .calendar import Calendar
+from .config import Config
+from .core.grid import make_grid
+from .dynamics.remap_exact import build_flat_table
+from .model.flux import zeros_forcing
+from .model.forcing import default_ocn, get_forcing
+from .model.initial import set_state_var
+from .model.state import State, zeros_state
+from .model.step import ModelStatic, model_step
+
 
 class ReferenceModel:
     """The frozen plain path on `device` in `dtype` ('float64' or
@@ -38,6 +46,15 @@ class ReferenceModel:
     def zeros(self) -> State:
         """A state of zeros of this model's shapes, dtype and device."""
         return zeros_state(self.cfg, self.grid)
+
+    def default_state(self) -> State:
+        """CICE's default initial state (`set_state_var`) on this grid."""
+        return set_state_var(self.cfg, self.grid, self.zeros(),
+                             self.forcing0.Tf)
+
+    def tracer_count(self) -> int:
+        """NT: the number of tracers that the transport carries."""
+        return len(build_flat_table(self.static.registry))
 
     def calendar(self, nsteps: int = 0) -> Calendar:
         """The calendar after `nsteps` steps from the configured start."""

@@ -10,7 +10,7 @@ import json
 import pytest
 
 from icebench import catalog, harness
-from icebench.control import Bfloat16State
+from icebench.control import control
 from faults import KINDS, Faulty
 from icebench.system import Program
 
@@ -44,7 +44,7 @@ def test_sound_run_is_correct_and_its_last_line_is_complete():
 
 
 def test_control_is_not_correct():
-    _, line = _run("om025.hourly", Bfloat16State)
+    _, line = _run("om025.hourly", control(catalog.config("om025")))
     assert line["correct"] is False
     assert all(c["value"] is None or c["value"] > c["limit"]
                for c in line["checks"].values())

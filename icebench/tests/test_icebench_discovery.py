@@ -1,6 +1,7 @@
-"""A cell, a configuration, a traffic mix and a per-layer metric are each
-added by new files and BENCHMARK.json entries alone: a copy of the
-benchmark with a dummy of each finds them with no other file edited."""
+"""A cell, a configuration, its reference, a traffic mix and a per-layer
+metric are each added by new files and BENCHMARK.json entries alone: a
+copy of the benchmark with a dummy of each finds them with no other file
+edited."""
 
 import json
 import os
@@ -65,6 +66,73 @@ def test_dummy_cell_config_and_metric_are_found(tmp_path):
     # the other cells do not report it
     assert "dummy_ms" not in [m["name"] for m in catalog.metrics_of(
         bench, bench["workloads"][0]["name"], "per_layer")]
+
+
+DUMMY_REFERENCE = '''"""A test's reference: the ice reference, each model it builds noted."""
+
+from ..ice.reference import ReferenceModel as _Ice
+
+MADE = []
+
+
+class ReferenceModel(_Ice):
+    def __init__(self, run, device, dtype="float64"):
+        MADE.append(dtype)
+        super().__init__(run, device, dtype)
+'''
+
+RUN = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.append(sys.argv[2])
+import torch
+torch.set_num_threads(2)
+from icebench import catalog, harness
+from icebench.reference.dummy import reference as dummy
+out = harness.run_cell(catalog.benchmark(), "dummy.hourly", 7, 0, False,
+                       "cpu", shrink=(24, 20), window_steps=1,
+                       log=lambda s: None)
+ok, checks = harness.verdict("dummy.hourly", out["checks"])
+print(json.dumps({"made": dummy.MADE, "ok": ok, "n": out["n"],
+                  "checks": checks, "file": dummy.__file__,
+                  "nt": out["ctx"].shape["nt"]}))
+"""
+
+
+def test_a_configuration_brings_its_own_reference(tmp_path):
+    """A dummy configuration naming a new `reference/dummy/` runs a cell
+    through `run_cell` against that reference (initial state, float64
+    and float32 check)."""
+    root = tmp_path / "checkout"
+    shutil.copytree(catalog.HERE, root / "icebench",
+                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
+    ib = root / "icebench"
+    bench = catalog.benchmark()
+    om025 = bench["workloads"][0]
+    bench["configs"].append({"name": "dummy", "source": "a test",
+                             "file": "icebench/configs/dummy.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({**om025, "name": "dummy.hourly",
+                               "config": "dummy"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cfg = catalog.config(om025["config"])
+    (ib / "configs" / "dummy.json").write_text(json.dumps(
+        {**cfg, "name": "dummy", "reference": "dummy"}))
+    (ib / "workloads" / "dummy.hourly.json").write_text(json.dumps(
+        {"limits": catalog.limits(om025["name"])}))
+    (ib / "reference" / "dummy").mkdir()
+    (ib / "reference" / "dummy" / "__init__.py").write_text("")
+    (ib / "reference" / "dummy" / "reference.py").write_text(
+        DUMMY_REFERENCE)
+    out = subprocess.run([sys.executable, "-c", RUN, str(root),
+                          catalog.REPO], capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["file"] == str(ib / "reference" / "dummy" / "reference.py")
+    assert got["made"] == [cfg["precision"], "float64", "float32"]
+    assert got["n"] == 1 and got["nt"] == 25
+    assert got["ok"] is True, got["checks"]
 
 
 def test_an_input_generator_is_found_by_its_kind():

@@ -1,12 +1,14 @@
 """What the benchmark loads: no module whose top-level name is jax,
 jaxlib, flax or cice_tpu (compared whole: the program's name begins with
-the last) in anything `run.py` loads, and nothing of the program in the
-reference."""
+the last) in anything `run.py` loads, and nothing of the program in any
+reference, `reference/<name>/` for every name there is."""
 
 import ast
 import os
 import subprocess
 import sys
+
+import pytest
 
 from icebench import catalog
 from icebench.harness import FORBIDDEN
@@ -38,21 +40,55 @@ def test_no_source_imports_jax_or_the_jax_package():
         assert not bad, (path, bad)
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    paths = list(_sources("reference"))
-    names = {os.path.relpath(p, catalog.HERE) for p in paths}
-    assert {"reference/ice/model/step.py", "reference/ice/dynamics/evp.py",
+def _references():
+    """The names of the reference directories, `reference/<name>/`."""
+    top = os.path.join(catalog.HERE, "reference")
+    return sorted(d for d in os.listdir(top)
+                  if os.path.isfile(os.path.join(top, d, "__init__.py")))
+
+
+def _shared():
+    """The modules that every reference shares (`reference/*.py`)."""
+    top = os.path.join(catalog.HERE, "reference")
+    return [os.path.join(top, f) for f in sorted(os.listdir(top))
+            if f.endswith(".py")]
+
+
+def test_the_ice_reference_is_among_those_walked():
+    assert "ice" in _references()
+    names = {os.path.relpath(p, catalog.HERE)
+             for p in _sources("reference", "ice")}
+    assert {"reference/ice/reference.py", "reference/ice/model/step.py",
+            "reference/ice/dynamics/evp.py",
             "reference/ice/dynamics/remap_exact.py"} <= names
-    for path in paths:
+
+
+@pytest.mark.parametrize("name", _references())
+def test_the_reference_imports_nothing_of_the_program(name):
+    paths = list(_sources("reference", name))
+    assert os.path.join(catalog.HERE, "reference", name,
+                        "reference.py") in paths
+    for path in paths + _shared():
         tops = set(_imports(path))
         assert not tops & {"cice_tpu_torch", "icebench"}, path
         assert not tops & set(FORBIDDEN), path
 
 
-def test_every_relative_import_of_the_reference_exists():
-    """No branch of the frozen copy imports a module it does not hold
-    (the program's kernels, ranks or files)."""
-    for path in _sources("reference"):
+@pytest.mark.parametrize("name", _references())
+def test_the_reference_keeps_the_contract(name):
+    """`catalog.reference` finds its `ReferenceModel`, with the methods
+    that the harness calls."""
+    cls = catalog.reference({"name": "any", "reference": name})
+    for method in ("zeros", "default_state", "calendar", "step",
+                   "tracer_count"):
+        assert callable(getattr(cls, method)), (name, method)
+
+
+@pytest.mark.parametrize("name", _references())
+def test_every_relative_import_of_the_reference_exists(name):
+    """No branch of a reference imports a module it does not hold (the
+    program's kernels, ranks or files)."""
+    for path in list(_sources("reference", name)) + _shared():
         for node in ast.walk(ast.parse(open(path).read())):
             if not (isinstance(node, ast.ImportFrom) and node.level):
                 continue

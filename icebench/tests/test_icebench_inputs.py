@@ -6,10 +6,9 @@ import os
 
 import torch
 
-from icebench import inputs
+from icebench import catalog, inputs
 from icebench.inputs import seeded_caps
 from icebench.leaves import leaves
-from icebench.reference.model import ReferenceModel
 
 GRID = {"grid": {"kind": "displaced_pole_grid", "nx": 24, "ny": 20}}
 PARAMS = {"kind": "seeded_caps", "thick": 0.3, "snow": 0.5}
@@ -39,7 +38,7 @@ def _states(tmp_path, *seeds):
         "grid.grid_format": "pop_bin", "grid.grid_type": "displaced_pole",
         "grid.grid_file": "{grid.grid}", "grid.kmt_file": "{grid.kmt}",
         "grid.ew_boundary_type": "cyclic", "setup.ice_ic": "none"}, made)
-    ref = ReferenceModel(run, "cpu", "float32")
+    ref = catalog.reference(catalog.config("om025"))(run, "cpu", "float32")
     return [leaves(seeded_caps.make_state(ref, PARAMS, s)) for s in seeds]
 
 

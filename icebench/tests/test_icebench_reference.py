@@ -11,7 +11,8 @@ from icebench import inputs as inp
 from icebench.inputs import seeded_caps
 from icebench.leaves import fill, leaves
 from icebench.reference.compare import leaf_gaps, worst
-from icebench.reference.model import ReferenceModel
+
+ReferenceModel = catalog.reference(catalog.config("om025"))
 
 
 def _run(tmp_path, name, nx=24, ny=20):
@@ -88,9 +89,71 @@ def test_gaps_in_envelope_units():
     assert 1.0 < g["a"] < 10.0
 
 
+@pytest.mark.parametrize("bad", [math.inf, -math.inf, math.nan])
+@pytest.mark.parametrize("side", ["float32", "float64"])
+def test_a_reference_that_is_not_finite_reads_inf(side, bad):
+    """A non-finite reference judges nothing: in r32 it would widen the
+    envelope to inf and read a program off by half as 0."""
+    r64 = {"a": torch.tensor([1.0, 2.0], dtype=torch.float64),
+           "b": torch.tensor([3.0, 4.0], dtype=torch.float64)}
+    r32 = {k: v.float() for k, v in r64.items()}
+    p = {"a": torch.tensor([1.5, 3.0]), "b": r32["b"].clone()}
+    (r32 if side == "float32" else r64)["a"][1] = bad
+    g = leaf_gaps(p, r32, r64)
+    assert g["a"] == math.inf
+    assert g["b"] == 0.0
+    assert worst(g) == (math.inf, "a")
+
+
+def test_check_names_the_reference_at_fault():
+    """`check.gaps` logs a leaf that reads inf for its float32 reference
+    as the reference's fault, naming the leaf and the precision."""
+    import dataclasses
+    from icebench import check
+
+    @dataclasses.dataclass
+    class S:
+        a: torch.Tensor
+
+    class Ref:      # float64 steps to [1, 2]; float32 to [1, inf]
+        def __init__(self, run, device, dtype):
+            self.dtype = getattr(torch, dtype)
+
+        def zeros(self):
+            return S(torch.zeros(2, dtype=self.dtype))
+
+        def calendar(self, n=0):
+            return n
+
+        def step(self, st, cal):
+            a = [1.0, math.inf if self.dtype == torch.float32 else 2.0]
+            return S(torch.tensor(a, dtype=self.dtype)), cal + 1
+
+    p = {"a": torch.tensor([1.0, 2.0])}
+    said = []
+    out = check.gaps(Ref, {}, "cpu", p, 1, p, p, 5, p, log=said.append)
+    assert out == {"start_gap": (math.inf, "a"),
+                   "window_gap": (math.inf, "a")}
+    assert len(said) == 2
+    for line in said:
+        assert "leaf a" in line and "the reference's fault" in line
+        assert "float32 reference holds 1 non-finite" in line
+        assert "float64" not in line
+
+
+def test_a_configuration_must_name_a_reference_that_is_there():
+    cfg = catalog.config("om025")
+    assert catalog.reference(cfg) is ReferenceModel
+    no_key = {k: v for k, v in cfg.items() if k != "reference"}
+    with pytest.raises(ValueError, match="'om025' names no reference"):
+        catalog.reference(no_key)
+    for name in ("absent", "../ice", "ice/model"):
+        with pytest.raises(ValueError, match=f"'om025' names the "
+                           f"reference '{name}'"):
+            catalog.reference({**cfg, "reference": name})
+
+
 def test_fill_keeps_dtype_and_copies():
-    ref_state = ReferenceModel.__new__(ReferenceModel)
-    del ref_state
     from icebench.reference.ice.model.state import State
     import dataclasses
     z = {f.name: torch.zeros(2) for f in dataclasses.fields(State)
