@@ -2745,6 +2745,7 @@ def main() -> int:
 
     def reset_counters():
         kevp.launches = kremap.launches = kremap.flux_launches = 0
+        kremap.chunk_launches = 0
         kevp.persistent_launches = kevp.stream_launches = 0
         kbl99.whole_launches = kbl99.per_pass_launches = 0
 

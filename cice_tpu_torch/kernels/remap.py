@@ -49,6 +49,9 @@ from ._build import check, load
 
 #: times the one-pass transport kernel was launched
 launches = 0
+#: tracer chunks of its schedule the one-pass kernel walked, summed over
+#: its launches (counted on the host from the schedule, no device read)
+chunk_launches = 0
 #: times the flux-only kernel was launched
 flux_launches = 0
 
@@ -337,7 +340,7 @@ def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
     tile, budget: None / CHUNK let `pick_tile` choose the tile for chunks
     of at most CHUNK reconstructions; a test or a measurement may name
     another tile of TILES or another chunk size."""
-    global launches
+    global launches, chunk_launches
     if grid.bc.tripole or grid.bc.y_cyclic:
         raise NotImplementedError(
             "fused transport kernel: tripole/y-cyclic boundaries are not "
@@ -382,6 +385,7 @@ def transport_cuda(grid: Grid, mom_n, mom_e, am, trm, table, *, tile=None,
         am_pre.data_ptr(), ncat, NT, ny, nx, x_cyclic, tx, ty, stream)
     check(err, "transport_fused")
     launches += 1
+    chunk_launches += layout.nch
     if R:
         am_pre, trm_new = _crop(R, am_pre, trm_new)
     return am_pre, trm_new

@@ -171,11 +171,13 @@ def _const(v: float, dtype, device) -> torch.Tensor:
 
 
 def _therm1_bgc(cfg, trcrn: dict, fc: Forcing, dt: float, *, an, vicen,
-                vsnon, th, sw, aice):
+                vsnon, th, sw, aice, timer=None):
     """The tracer physics of step_therm1 after the ponds: aerosols and
     isotopes (icepack_aerosol / icepack_isotope), the brine height
     (update_hbrine) and, on the brine column, the z tracers (z_tracers /
-    solve_zbgc). Returns (trcrn, the planes for FluxOut.ncat_fluxes)."""
+    solve_zbgc). With z tracers the brine height and the z tracers run in
+    the phase 'zbgc' (`_phase`, inside therm1's). Returns (trcrn, the
+    planes for FluxOut.ncat_fluxes)."""
     t, z = cfg.tracers, cfg.zbgc
     planes = {}
     if t.tr_aero and "aerosno" in trcrn:
@@ -199,15 +201,25 @@ def _therm1_bgc(cfg, trcrn: dict, fc: Forcing, dt: float, *, an, vicen,
         planes["fiso_ocn"] = fiso_ocn
     if not (t.tr_brine and "fbri" in trcrn):
         return trcrn, planes
-    hb = update_hbrine(dt, aicen=an, vicen=vicen, vsnon=vsnon,
-                       fbri=trcrn["fbri"], qice=trcrn["qice"],
-                       sice=trcrn["sice"], meltb=th.meltb, meltt=th.meltt,
-                       congel=th.congel)
-    trcrn["fbri"] = hb.fbri
     znames = [n for n in z_tracer_names(z) if n in trcrn] \
         if z.z_tracers else []
-    if not znames:
-        return trcrn, planes
+    with _phase(timer, "zbgc") if znames else contextlib.nullcontext():
+        hb = update_hbrine(dt, aicen=an, vicen=vicen, vsnon=vsnon,
+                           fbri=trcrn["fbri"], qice=trcrn["qice"],
+                           sice=trcrn["sice"], meltb=th.meltb,
+                           meltt=th.meltt, congel=th.congel)
+        trcrn["fbri"] = hb.fbri
+        if znames:
+            _z_tracers(z, trcrn, planes, fc, dt, znames, hb.darcy_V, an=an,
+                       vicen=vicen, vsnon=vsnon, th=th, sw=sw, aice=aice)
+    return trcrn, planes
+
+
+def _z_tracers(z, trcrn: dict, planes: dict, fc: Forcing, dt: float,
+               znames: list, darcy_V, *, an, vicen, vsnon, th, sw, aice):
+    """The z tracers `znames` on the brine column (step_zbgc), in place in
+    `trcrn`, with the z network's diagnostics and fluxes to the ocean
+    added to `planes`."""
     zdep = None
     if z.tr_zaero and z.n_zaero > 0:
         # standalone deposition defaults (faero_default): BC1, BC2, then
@@ -220,7 +232,7 @@ def _therm1_bgc(cfg, trcrn: dict, fc: Forcing, dt: float, *, an, vicen,
         z, dt, aicen=an, vicen=vicen, vsnon=vsnon, fbri=trcrn["fbri"],
         qice=trcrn["qice"], sice=trcrn["sice"],
         trc={n: trcrn[n] for n in znames},
-        frac={n: trcrn[n + "_mf"] for n in znames}, darcy_V=hb.darcy_V,
+        frac={n: trcrn[n + "_mf"] for n in znames}, darcy_V=darcy_V,
         fswthru=sw.fswint + sw.fswthru, Tbot=fc.Tf, meltt=th.meltt,
         meltb=th.meltb, congel=th.congel, frazil=torch.zeros_like(aice),
         zaero_dep=zdep,
@@ -235,14 +247,14 @@ def _therm1_bgc(cfg, trcrn: dict, fc: Forcing, dt: float, *, an, vicen,
     # of each z tracer (history fzaero/fN/fNit... families)
     planes.update(zout.diags)
     planes.update({f"fzbgc_{n}": v for n, v in zout.flux_ocn.items()})
-    return trcrn, planes
 
 
 def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
-                dt: float):
+                dt: float, timer=None):
     """Vertical thermo for all categories in one dense pass: the category
     axis is a leading broadcast dim of every (ncat, ny, nx) tensor.
-    Returns (state, agg, hicen_old) with agg the dict of cell-mean fluxes."""
+    Returns (state, agg, hicen_old) with agg the dict of cell-mean fluxes.
+    `timer` is `model_step`'s: the z tracers run in its phase 'zbgc'."""
     cfg = ms.cfg
     check_ported(cfg)
     nilyr = cfg.domain.nilyr
@@ -435,7 +447,7 @@ def step_therm1(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
     # aerosol and isotope tracers, the brine height and the z tracers
     trcrn, bgc_fluxes = _therm1_bgc(cfg, trcrn, fc, dt, an=an,
                                     vicen=vicen_out, vsnon=vsnon_out, th=th,
-                                    sw=sw, aice=aice)
+                                    sw=sw, aice=aice, timer=timer)
 
     # advanced snow physics (icepack_step_snow; it rides with therm1, where
     # the per-category melt and snow temperature are in hand)
@@ -890,13 +902,13 @@ def _mean_age(st: State):
 def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
                dt: float, timer=None):
     """One full thermo+dyn timestep. Returns (state, FluxOut). `timer`, if
-    given, is called with a phase name ('therm1', 'therm2', 'fsd' under
-    tr_fsd, 'bgc' under skl_bgc, 'dyn', 'transport', 'ridge', 'ocean') and
-    returns a context manager that the phase runs in. While a profiler
-    runs, each phase opens the range "ice:<phase>" inside the timer's
-    context, and the code before therm1, between the thermo phases and
-    the dynamics, and after ocean "ice:prep", "ice:tendencies" and
-    "ice:fluxes"."""
+    given, is called with a phase name ('therm1', 'zbgc' inside therm1
+    under z_tracers, 'therm2', 'fsd' under tr_fsd, 'bgc' under skl_bgc,
+    'dyn', 'transport', 'ridge', 'ocean') and returns a context manager
+    that the phase runs in. While a profiler runs, each phase opens the
+    range "ice:<phase>" inside the timer's context, and the code before
+    therm1, between the thermo phases and the dynamics, and after ocean
+    "ice:prep", "ice:tendencies" and "ice:fluxes"."""
     cfg = ms.cfg
     registry = ms.registry
     hin_max = ms.hin_max
@@ -916,7 +928,8 @@ def model_step(ms: ModelStatic, grid: Grid, state: State, fc: Forcing,
 
     # --- thermodynamics -------------------------------------------------
     with _phase(timer, "therm1"):
-        state, agg, hicen_old = step_therm1(ms, grid, state, fc, dt)
+        state, agg, hicen_old = step_therm1(ms, grid, state, fc, dt,
+                                            timer=timer)
 
     # wind stress on ice (T grid): from the per-category boundary layer of
     # step_therm1 under calc_strair, else the data stresses pass through

@@ -1042,3 +1042,19 @@ def test_k4_model_step_reads_no_picard_and_launches_once(cuda, gx1_therm1,
                                                **dict(kw, nit=20))[3]
         assert int(npass) == want
         assert launch_counts()["bl99_whole"] - before == 1
+
+
+def test_k2_counts_the_tracer_chunks_it_walks(cuda):
+    """`kernels.launch_counts()` adds K2's tracer chunks, counted on the
+    host from its schedule: 19 a pass at the z tracers' NT 266, 2 at NT
+    25 (PERF.md's kernel table)."""
+    from cice_tpu_torch.cli.main import OPTION_SETS
+    from cice_tpu_torch.kernels import launch_counts
+    for over, nch in (({}, 2), (OPTION_SETS["bgcz"], 19)):
+        m = Model(tconfig.gx1pop_step(48, 40, remap_kernel="auto")
+                  .with_overrides(**over), device=cuda)
+        before = launch_counts()
+        m.step()
+        after = launch_counts()
+        assert after["transport_fused"] - before["transport_fused"] == 1
+        assert after["transport_chunks"] - before["transport_chunks"] == nch

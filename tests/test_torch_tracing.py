@@ -75,3 +75,52 @@ def test_no_range_is_built_without_a_profiler(monkeypatch):
             activities=[torch.profiler.ProfilerActivity.CPU]):
         with pytest.raises(AssertionError, match="record_function built"):
             m.step()
+
+
+class _NestingTimer:
+    """A `model_step` timer that records, for each phase, the phases open
+    around it and the host reads counted while it ran."""
+
+    def __init__(self):
+        self.open, self.seen = [], []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        before = ttimers.sync_counts()
+        self.open.append(name)
+        try:
+            yield
+        finally:
+            self.open.pop()
+            after = ttimers.sync_counts()
+            reads = {k: v - before.get(k, 0) for k, v in after.items()
+                     if v != before.get(k, 0)}
+            self.seen.append((name, tuple(self.open), reads))
+
+
+@pytest.mark.parametrize("opts", ["bgcz", "none"])
+def test_z_tracers_run_in_a_phase_of_their_own(opts):
+    """Under z_tracers the brine height and the z tracers run in the phase
+    'zbgc' inside 'therm1' (and the profiler's range "ice:zbgc" inside
+    "ice:therm1"), which reads the host nowhere; without z tracers no
+    such phase opens and the step's host reads are what they were."""
+    from cice_tpu_torch.cli.main import OPTION_SETS
+    over = OPTION_SETS["bgcz"] if opts == "bgcz" else {}
+    m = Model(tconfig.gx1pop_step(12, 10).with_overrides(**over),
+              device="cpu")
+    timer = _NestingTimer()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        sites, n = _syncs_of(lambda: m.step(timer=timer))
+    assert sum(sites.values()) == n
+    assert sites["rebin"] == 24 and "picard" in sites
+    zb = [(outer, reads) for name, outer, reads in timer.seen
+          if name == "zbgc"]
+    ranges = {e.name: e for e in prof.events()
+              if e.name in ("ice:therm1", "ice:zbgc")}
+    if opts == "none":
+        assert not zb and "ice:zbgc" not in ranges
+        return
+    assert zb == [(("therm1",), {})]
+    t1, z = ranges["ice:therm1"].time_range, ranges["ice:zbgc"].time_range
+    assert t1.start <= z.start and z.end <= t1.end

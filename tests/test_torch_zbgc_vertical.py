@@ -23,6 +23,9 @@ holds it to 1e-3 C), and the inversion's few-ulp differences pass through
 exp() of the Thomas solve's diagonal.
 """
 
+import os
+from fractions import Fraction
+
 import numpy as np
 import pytest
 
@@ -170,30 +173,44 @@ def test_porosity_and_par_profiles_match_jax(dtype, nb):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_stacked_tridiag_solve_equals_one_solve_per_system(dtype):
     """Five right-hand sides share the coefficients in the port's stacked
-    solve; the JAX package solves each alone. A zero pivot takes the
-    1e-30 guard in both."""
+    solve; the JAX package solves each alone, in its direct form, with the
+    diagonal the port's columns imply (excess plus the couplings that
+    leave the column). Where the couplings dwarf the excess the direct
+    form's pivot cancels; the port's solve equals the exact solution."""
     rng = np.random.default_rng(71)
     shp = (NCAT, 7, NY, NX)
     lower = -rng.random(shp)
     upper = -rng.random(shp)
-    diag = 1.0 + np.abs(lower) + np.abs(upper) + rng.random(shp)
-    diag[0, 1, 0, 0] = lower[0, 1, 0, 0] * upper[0, 0, 0, 0] / \
-        diag[0, 0, 0, 0]                      # denominator exactly ~0
+    lower[:, 0] = 0.0
+    upper[:, -1] = 0.0
+    excess = 0.05 + rng.random(shp)
+    diag = excess.copy()
+    diag[:, 1:] += np.abs(upper[:, :-1])
+    diag[:, :-1] += np.abs(lower[:, 1:])
     rhs = rng.random((5,) + shp)
     c = lambda x: x.astype(dtype)
     with jax.disable_jit():
         ref = np.stack([np.asarray(jz.tridiag_solve(
             *(jnp.asarray(c(x)) for x in (lower, diag, upper, r))))
             for r in rhs])
-    got = tz.tridiag_solve(*(torch.as_tensor(c(x)) for x in (lower, diag,
-                                                            upper, rhs)))
-    fin = np.isfinite(ref)
-    assert np.array_equal(np.isfinite(got.numpy()), fin)
-    _close(np.where(fin, got.numpy(), 0), np.where(fin, ref, 0),
-           "tridiag", dtype)
+    got = tz.tridiag_solve(*(torch.as_tensor(c(x)) for x in (lower, upper,
+                                                            excess, rhs)))
+    assert np.isfinite(ref).all()
+    _close(got.numpy(), ref, "tridiag", dtype)
     single = tz.tridiag_solve(*(torch.as_tensor(c(x)) for x in (
-        lower, diag, upper, rhs[2])))
+        lower, upper, excess, rhs[2])))
     assert torch.equal(single, got[2]) or dtype == "float32"
+    # a column whose couplings are 1e18 times its excess (a brine column
+    # near zero height), where the direct form's pivot cancels (to zero,
+    # and the 1e-30 guard, in float32): the solve keeps the exact solution
+    lower[:, :, 0, 0] *= 1e18
+    upper[:, :, 0, 0] *= 1e18
+    sys_ = [c(x) for x in (lower, upper, excess, rhs)]
+    got = tz.tridiag_solve(*(torch.as_tensor(x) for x in sys_)).numpy()
+    for cat in range(NCAT):
+        ex = _exact_solve(*sys_, cat, 0)
+        err = np.abs(got[:, cat, :, 0, 0] - ex) / np.abs(ex)
+        assert float(err.max()) <= C2_SOLVE[dtype], cat
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -285,3 +302,203 @@ def test_partial_snow_reservoirs_are_refused():
     snow.pop(names[-1])
     with pytest.raises(ValueError, match="every z tracer or for none"):
         _call(tz, torch.as_tensor, tzc, a, trc, frac, snow, dep)
+
+
+# ---------------------------------------------------------------------------
+# the thin brine column of the gx1bgcz cell (ROADMAP C2)
+# ---------------------------------------------------------------------------
+
+#: step_zbgc's inputs at five columns of float32 gx1pop,evp1d,bgcz runs on
+#: the card (320x384, seeded NCAR monthly forcing; `where`: seed, step,
+#: j, i, latitude): c0, the thinnest brine column under ice of 13 runs of
+#: 300 steps (seed 2721000203, step 171, 59.5S: category 1 melted
+#: through in this step, vicen 0 at aicen 4.9e-3, so its bio layers sit
+#: at dz = puny and the transport's couplings reach 1.8e20); c1-c4 the
+#: thinnest of four other runs (brine 2.0-2.4 mm), sound columns.
+C2 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                  "zbgc_c2_columns.npz")
+#: float32 against the mended float64, of each field's largest: the
+#: float32 step reads at most 1.1e-6 on these columns; their inputs
+#: rounded to bfloat16 read 1.1e-3 and more
+C2_F32 = 1e-5
+#: the transport's tridiagonal solve against the exact (rational)
+#: solution of the same system, elementwise: float32 reads 4.1e-7,
+#: float64 5.2e-16 on c0
+C2_SOLVE = {"float32": 1e-5, "float64": 1e-14}
+
+
+def _c2_inputs(dtype, names, bf16=False):
+    """The five columns stacked on the y axis: (ncat, 5, 1) planes."""
+    f = np.load(C2)
+    cols = [f"c{i}" for i in range(5)]
+
+    def cast(x):
+        t = torch.as_tensor(x)
+        return (t.to(torch.bfloat16) if bf16 else t).to(getattr(torch,
+                                                                 dtype))
+
+    def get(k, axis):
+        return cast(np.stack([f[f"{c}.{k}"] for c in cols], axis)[..., None])
+
+    kw = {k: get(k, 1) for k in ("aicen", "vicen", "vsnon", "fbri",
+                                 "darcy_V", "fswthru", "meltt", "meltb",
+                                 "congel", "melts")}
+    kw.update(qice=get("qice", 2), sice=get("sice", 2),
+              Tbot=get("Tbot", 0), frazil=get("frazil", 0),
+              trc={n: get(f"trc.{n}", 2) for n in names},
+              frac={n: get(f"frac.{n}", 2) for n in names},
+              snow={n: get(f"snow.{n}", 1) for n in names})
+    return kw
+
+
+def _exact_solve(lower, upper, excess, rhs, cat, col):
+    """The exact solution (in rationals, rounded at the end) of one
+    category's system at column `col`, for every right-hand side."""
+    nb = excess.shape[1]
+    q = lambda t, k: Fraction(float(t[cat, k, col, 0]))
+    lo = [q(lower, k) for k in range(nb)]
+    up = [q(upper, k) for k in range(nb)]
+    dg = [q(excess, k) - (up[k - 1] if k else 0)
+          - (lo[k + 1] if k < nb - 1 else 0) for k in range(nb)]
+    out = []
+    for t in range(rhs.shape[0]):
+        r = [Fraction(float(rhs[t, cat, k, col, 0])) for k in range(nb)]
+        cp, dp = [up[0] / dg[0]], [r[0] / dg[0]]
+        for k in range(1, nb):
+            den = dg[k] - lo[k] * cp[k - 1]
+            cp.append(up[k] / den)
+            dp.append((r[k] - lo[k] * dp[k - 1]) / den)
+        x = [dp[-1]]
+        for k in range(nb - 2, -1, -1):
+            x.insert(0, dp[k] - cp[k] * x[0])
+        out.append([float(v) for v in x])
+    return np.array(out)
+
+
+def _c2_step(dtype, monkeypatch, bf16=False):
+    """step_zbgc on the five columns, and the arguments and result of its
+    tridiagonal solve."""
+    tzc, _ = _zcfgs(**BGCZ)
+    names = tz.z_tracer_names(tzc)
+    seen = {}
+    solve = tz.tridiag_solve
+
+    def spy(*args):
+        seen["args"] = args + (solve(*args),)
+        return seen["args"][-1]
+
+    monkeypatch.setattr(tz, "tridiag_solve", spy)
+    out = tz.step_zbgc(tzc, DT, **_c2_inputs(dtype, names, bf16))
+    return out, seen["args"], names
+
+
+def test_thin_brine_column_is_finite_in_float32(monkeypatch):
+    """The float32 step holds every field of the five columns within
+    C2_F32 of the mended float64, the thin column c0 too; the columns'
+    inputs rounded to bfloat16 do not."""
+    o64, _, names = _c2_step("float64", monkeypatch)
+    o32, _, _ = _c2_step("float32", monkeypatch)
+    o16, _, _ = _c2_step("float32", monkeypatch, bf16=True)
+
+    def worst(o, col):
+        return max(float((o.trc[n][:, :, col].double()
+                          - o64.trc[n][:, :, col]).abs().max()
+                         / o64.trc[n][:, :, col].abs().max().clamp(
+                             min=1e-300)) for n in names)
+
+    for col in range(5):
+        assert all(bool(torch.isfinite(o32.trc[n]).all()) for n in names)
+        assert worst(o32, col) <= C2_F32, col
+        assert worst(o16, col) > 10 * C2_F32, col
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_thin_brine_column_solves_its_system_exactly(dtype, monkeypatch):
+    """On c0 the subtraction-free elimination gives the exact solution
+    of the transport's system to C2_SOLVE, though its
+    couplings reach 1.8e20 (the direct form's pivot cancels there); the
+    system's coefficients rounded to bfloat16 do not."""
+    _, (lower, upper, excess, rhs, x), _ = _c2_step(dtype, monkeypatch)
+    assert float((-lower[:, :, 0]).max()) > 1e19
+    coarse = tz.tridiag_solve(*(t.to(torch.bfloat16).to(t.dtype)
+                                for t in (lower, upper, excess, rhs)))
+    far = 0.0
+    for cat in range(NCAT):
+        ex = _exact_solve(lower, upper, excess, rhs, cat, 0)
+        scale = np.maximum(np.abs(ex), 1e-300)
+        got = x[:, cat, :, 0, 0].double().numpy()
+        assert float((np.abs(got - ex) / scale).max()) <= C2_SOLVE[dtype]
+        far = max(far, float((np.abs(coarse[:, cat, :, 0, 0].double()
+                                     .numpy() - ex) / scale).max()))
+    assert far > 10 * C2_SOLVE["float32"]
+
+
+def test_sound_columns_match_jax_and_the_thin_one_departs(monkeypatch):
+    """In float64 every category of the five columns whose brine column
+    holds z tracers (at least HBR_BIO_MIN) equals the JAX package's
+    step_zbgc to its engine-vs-engine 1e-12. The first category of each
+    column is thin (c0's melted through, c1-c4's brine 2.0-2.4 mm): the
+    port takes the thin-brine-column rule there, the mixed layer's
+    concentrations; the JAX package, which lacks the rule, carries the
+    contents over a height near zero (1e10-1e14 mmol/m^3), and on c0 its
+    direct-form solve cancels its pivot: a departure logged under
+    ROADMAP's "Reference faults not copied"."""
+    tzc, jzc = _zcfgs(**BGCZ)
+    got, _, names = _c2_step("float64", monkeypatch)
+    kw = _c2_inputs("float64", names)
+    with jax.disable_jit():
+        ref = jz.step_zbgc(jzc, DT, **{
+            k: ({n: jnp.asarray(v.numpy()) for n, v in a.items()}
+                if isinstance(a, dict) else jnp.asarray(a.numpy()))
+            for k, a in kw.items()})
+    a, v = kw["aicen"].numpy(), kw["vicen"].numpy()
+    ice = a > 1e-11
+    hbr = np.where(ice, v / np.maximum(a, 1e-11), 0.0) * np.clip(
+        kw["fbri"].numpy(), 0.0, 1.2)
+    held = ice & (hbr >= tz.HBR_BIO_MIN)
+    thin = ice & ~held
+    assert thin[0].all() and not thin[1:].any()
+    held_b = np.broadcast_to(held[:, None], got.trc[names[0]].shape)
+    far = 0.0
+    for n in names:
+        g, r = got.trc[n].numpy(), np.asarray(ref.trc[n])
+        _close(g[held_b], r[held_b], f"held categories {n}", "float64")
+        assert (g[0] == tz.ocean_concentration(tzc, n)).all(), n
+        far = max(far, float(np.abs(r[0]).max()))
+    assert far > 1e10
+
+
+def test_thin_brine_columns_give_the_ocean_what_they_held():
+    """Under the thin-brine-column rule a column keeps its budget: what
+    its z tracers held over its brine height, and its snow reservoirs,
+    less what it holds after (the mixed layer's concentrations), is what
+    its flux to the ocean carries in the step. Every category of c0 made
+    thin (its ice at a tenth of its volume), with snow reservoirs and no
+    snow, so that the reservoirs empty into the column."""
+    tzc, _ = _zcfgs(**{**BGCZ, "zbgc.solve_zbgc": False})
+    names = tz.z_tracer_names(tzc)
+    kw = _c2_inputs("float64", names)
+    kw = {k: (({n: x[:, :, :1] for n, x in t.items()} if k != "snow"
+               else {n: x[:, :1] for n, x in t.items()})
+              if isinstance(t, dict) else t) for k, t in kw.items()}
+    for k in ("aicen", "vicen", "vsnon", "fbri", "darcy_V", "fswthru",
+              "meltt", "meltb", "congel", "melts"):
+        kw[k] = kw[k][:, :1]
+    for k in ("qice", "sice"):
+        kw[k] = kw[k][:, :, :1]
+    kw["Tbot"], kw["frazil"] = kw["Tbot"][:1], kw["frazil"][:1]
+    kw["vicen"] = 0.001 * kw["aicen"]
+    kw["fbri"] = torch.ones_like(kw["fbri"])
+    kw["snow"] = {n: torch.full_like(kw["aicen"], 0.5 + i)
+                  for i, n in enumerate(names)}
+    out = tz.step_zbgc(tzc, DT, **kw)
+    a, hbr = kw["aicen"], kw["vicen"] / kw["aicen"]
+    assert bool((hbr < tz.HBR_BIO_MIN).all())
+    for n in names:
+        before = a * (kw["trc"][n].clamp(min=0.0).mean(1) * hbr
+                      + kw["snow"][n])
+        after = a * (out.trc[n].mean(1) * hbr + out.snow[n])
+        assert bool((out.trc[n] == tz.ocean_concentration(tzc, n)).all())
+        np.testing.assert_allclose(
+            (out.flux_ocn[n] * DT).numpy(), (before - after).sum(0).numpy(),
+            rtol=1e-12, err_msg=n)
